@@ -1,0 +1,134 @@
+"""The ten assigned architectures (the port's copy of
+``repro/configs/archs.py``).
+
+The data is the JAX package's, field for field; the port builds only the
+dense attention family so far (see ROADMAP.md). Reduced smoke variants keep
+the structural skeleton (pattern, first_k_dense, remainder, MoE/MLA/SSM
+blocks) while shrinking widths so a forward step runs on CPU in seconds.
+"""
+from __future__ import annotations
+
+from repro_torch.models.config import (ArchConfig, MLAConfig, MoEConfig,
+                                       RGLRUConfig, SSMConfig)
+
+# --- ssm ---------------------------------------------------------------------
+MAMBA2_130M = ArchConfig(
+    name="mamba2-130m", family="ssm",
+    n_layers=24, d_model=768, n_heads=24, n_kv_heads=24, d_ff=0,
+    vocab=50280, pattern=("mamba2",),
+    ssm=SSMConfig(d_state=128, head_dim=64, expand=2, n_groups=1, chunk=256),
+    tie_embeddings=True, subquadratic=True,
+)  # [arXiv:2405.21060]
+
+# --- dense -------------------------------------------------------------------
+QWEN2_1_5B = ArchConfig(
+    name="qwen2-1.5b", family="dense",
+    n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2, d_ff=8960,
+    vocab=151936, qkv_bias=True, rope_theta=1e6, tie_embeddings=True,
+)  # [arXiv:2407.10671]
+
+QWEN2_7B = ArchConfig(
+    name="qwen2-7b", family="dense",
+    n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, d_ff=18944,
+    vocab=152064, qkv_bias=True, rope_theta=1e6, tie_embeddings=False,
+)  # [arXiv:2407.10671]
+
+QWEN1_5_4B = ArchConfig(
+    name="qwen1.5-4b", family="dense",
+    n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20, d_ff=6912,
+    vocab=151936, qkv_bias=True, rope_theta=1e6, tie_embeddings=False,
+)  # [hf:Qwen/Qwen1.5 family]
+
+QWEN3_4B = ArchConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, d_ff=9728,
+    vocab=151936, qk_norm=True, head_dim=128, rope_theta=1e6,
+    tie_embeddings=True,
+)  # [hf:Qwen/Qwen3 family — qk_norm, GQA]
+
+# --- moe ---------------------------------------------------------------------
+DEEPSEEK_V2_LITE = ArchConfig(
+    name="deepseek-v2-lite-16b", family="moe",
+    n_layers=27, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1408,
+    vocab=102400, first_k_dense=1, dense_ff=10944,
+    moe=MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408, n_shared=2),
+    mla=MLAConfig(kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                  v_head_dim=128),
+    tie_embeddings=False,
+)  # [arXiv:2405.04434 — MLA kv_lora=512, shared+routed experts top-6]
+
+GROK_1_314B = ArchConfig(
+    name="grok-1-314b", family="moe",
+    n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=32768,
+    vocab=131072,
+    moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32768, n_shared=0),
+    tie_embeddings=False,
+)  # [hf:xai-org/grok-1 — 8 experts top-2]
+
+# --- audio (enc-dec) -----------------------------------------------------------
+SEAMLESS_M4T_MEDIUM = ArchConfig(
+    name="seamless-m4t-medium", family="audio",
+    n_layers=12, d_model=1024, n_heads=16, n_kv_heads=16, d_ff=4096,
+    vocab=256206, encdec=True, n_enc_layers=12, mlp_act="gelu",
+    frontend="speech_stub", tie_embeddings=True,
+)  # [arXiv:2308.11596 — enc-dec, frontend stubbed]
+
+# --- hybrid -------------------------------------------------------------------
+RECURRENTGEMMA_9B = ArchConfig(
+    name="recurrentgemma-9b", family="hybrid",
+    n_layers=38, d_model=4096, n_heads=16, n_kv_heads=1, d_ff=12288,
+    vocab=256000, head_dim=256, window=2048,
+    pattern=("rglru", "rglru", "lattn"), mlp_act="geglu",
+    rglru=RGLRUConfig(lru_width=4096, conv_kernel=4, c=8.0),
+    tie_embeddings=True, subquadratic=True,
+)  # [arXiv:2402.19427 — RG-LRU + local attn, 1:2 ratio]
+
+# --- vlm ----------------------------------------------------------------------
+INTERNVL2_2B = ArchConfig(
+    name="internvl2-2b", family="vlm",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8, d_ff=8192,
+    vocab=92553, frontend="vit_stub", n_frontend_tokens=256,
+    tie_embeddings=True,
+)  # [arXiv:2404.16821 — InternViT (stub) + InternLM2 backbone]
+
+
+ARCHS = {
+    c.name: c for c in [
+        MAMBA2_130M, QWEN2_1_5B, QWEN2_7B, QWEN1_5_4B, QWEN3_4B,
+        DEEPSEEK_V2_LITE, GROK_1_314B, SEAMLESS_M4T_MEDIUM,
+        RECURRENTGEMMA_9B, INTERNVL2_2B,
+    ]
+}
+
+
+def smoke_config(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family config: small widths, few layers/experts, tiny
+    vocab — but the same block pattern, leading-dense and remainder structure
+    so the scan/stage machinery is exercised."""
+    pl = cfg.pattern_len
+    n_layers = cfg.first_k_dense + 2 * pl + min(cfg.n_remainder, pl - 1 if pl > 1 else 0)
+    kw = dict(
+        n_layers=n_layers,
+        d_model=64,
+        n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab=128,
+        head_dim=16 if cfg.head_dim else None,
+        window=8 if cfg.window else None,
+        n_frontend_tokens=4 if cfg.frontend == "vit_stub" else 0,
+        n_enc_layers=2 if cfg.encdec else 0,
+        dense_ff=96 if cfg.dense_ff else None,
+        dtype="float32", param_dtype="float32",
+    )
+    if cfg.moe:
+        kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_ff_expert=32,
+                              n_shared=min(cfg.moe.n_shared, 1))
+    if cfg.mla:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                              qk_rope_head_dim=8, v_head_dim=16)
+    if cfg.ssm:
+        kw["ssm"] = SSMConfig(d_state=16, head_dim=16, expand=2, n_groups=1,
+                              chunk=8)
+    if cfg.rglru:
+        kw["rglru"] = RGLRUConfig(lru_width=64, conv_kernel=4, c=8.0)
+    return cfg.replace(**kw)

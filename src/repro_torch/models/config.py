@@ -1,0 +1,156 @@
+"""Architecture configuration (the port's copy of ``repro/models/config.py``).
+
+One frozen dataclass describes every assigned architecture. The fields are
+the JAX package's, so a config compares field for field with its
+counterpart; ``act_dtype``/``p_dtype`` return torch dtypes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0          # 0 => full-rank q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD mixer."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 256
+    conv_kernel: int = 4
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU recurrent block."""
+    lru_width: int = 0            # 0 => d_model
+    conv_kernel: int = 4
+    c: float = 8.0                # the fixed decay sharpness constant
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | audio | vlm | cnn
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    # attention variants
+    head_dim: Optional[int] = None      # None => d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None        # sliding window for "lattn" blocks
+    logit_softcap: Optional[float] = None
+
+    # block pattern, repeated to fill n_layers. remainder uses the prefix.
+    pattern: Tuple[str, ...] = ("attn",)   # attn | lattn | mamba2 | rglru
+    mlp_act: str = "swiglu"                # swiglu | gelu
+    first_k_dense: int = 0                 # MoE archs: leading dense-MLP layers
+    dense_ff: Optional[int] = None         # d_ff of those dense layers
+
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+
+    # encoder-decoder (audio family)
+    encdec: bool = False
+    n_enc_layers: int = 0
+
+    # modality frontend stubs: vlm/audio backbones receive precomputed embeds
+    frontend: Optional[str] = None      # "vit_stub" | "speech_stub"
+    n_frontend_tokens: int = 0
+
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+
+    # early exit: backbone layer indices after which an exit head attaches.
+    # () means the arch default (single exit at n_layers // 2) is used when an
+    # EarlyExitModel is requested.
+    exit_layers: Tuple[int, ...] = ()
+
+    # dtypes
+    dtype: str = "bfloat16"            # activation dtype
+    param_dtype: str = "bfloat16"
+
+    # sub-quadratic? governs long_500k applicability
+    subquadratic: bool = False
+
+    def act_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def p_dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    # ---- layer plan helpers -------------------------------------------------
+    @property
+    def pattern_len(self) -> int:
+        return len(self.pattern)
+
+    @property
+    def n_scan_layers(self) -> int:
+        """Layers covered by the repeating-pattern scan (after first_k_dense)."""
+        return self.n_layers - self.first_k_dense
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.n_scan_layers // self.pattern_len
+
+    @property
+    def n_remainder(self) -> int:
+        return self.n_scan_layers - self.n_superblocks * self.pattern_len
+
+    def layer_kind(self, i: int) -> str:
+        """Block kind of backbone layer index i (0-based, over all n_layers)."""
+        if i < self.first_k_dense:
+            return "attn"   # leading dense layers are plain attn+mlp
+        return self.pattern[(i - self.first_k_dense) % self.pattern_len]
+
+    def default_exit_layers(self) -> Tuple[int, ...]:
+        if self.exit_layers:
+            return self.exit_layers
+        # default: one exit at the superblock boundary nearest half depth
+        half = self.n_layers // 2
+        pl = self.pattern_len
+        k = self.first_k_dense + max(pl, ((half - self.first_k_dense) // pl) * pl)
+        return (min(k, self.n_layers - pl),)
