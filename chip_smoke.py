@@ -19,7 +19,16 @@ CUDA toolkit. Phases, each printing its result on its own line:
      ``serve_api.build(mode="prefill")`` + ``serve_dataset``, then
      ``serve_batch`` on the first batch; every kernel must have launched in
      that window; the server is held against ``serve_batch`` and against
-     ``HostLoopServer`` (which runs no kernel).
+     ``HostLoopServer`` (which runs no kernel);
+  5. decode  -- the same model and weights, threshold calibrated on the
+     first decode step's confidences for p = 0.25: 64 requests of 64-token
+     prompts, 64 tokens each, in static batches of 32 through
+     ``serve_api.build(mode="decode", scheduler="sync")``, first with the
+     dense stage-2 cache, then paged (16-token pages); the exit-decision,
+     ring scatter-merge and paged append + gather kernels must each have
+     launched in that window; paged tokens equal dense ones, the paged
+     ``DecodeServer``'s logits equal the dense one's bit for bit on the
+     first batch, and a short run equals ``HostLoopDecoder`` bit for bit.
 
 A line of per-kernel JSON and the ``nvidia-smi`` line come before the last
 line, which is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -41,6 +50,7 @@ CONF_RTOL = 1e-5        # fp32 sum of exps, reduced in another order
 MARGIN = 1e-4           # decisions compare exactly where |c_thr*s - 1| > 1e-4
 LOGIT_ATOL = 5e-2       # bf16 stage-2 activations, GEMMs of other row counts
 N_REQUESTS, BATCH, SEQ, TARGET_P = 256, 32, 64, 0.25
+DEC_REQUESTS, DEC_TOKENS, PAGE = 64, 64, 16    # decode: prompts of SEQ
 
 
 def fail(msg: str) -> None:
@@ -88,8 +98,11 @@ def main() -> None:
     # -- 3. kernels against their plain versions ---------------------------
     kernels = kernel_phase(torch, dev)
 
-    # -- 4. the main path --------------------------------------------------
-    serve_phase(torch, dev, kernels)
+    # -- 4. the prefill path ----------------------------------------------
+    params, cfg = serve_phase(torch, dev, kernels)
+
+    # -- 5. the decode path -----------------------------------------------
+    decode_phase(torch, dev, kernels, params, cfg)
 
     print("KERNELS: " + "; ".join(
         f"{k['name']}: max_err {k['max_abs_err']:.3g}, launches "
@@ -320,11 +333,248 @@ def kernel_phase(torch, dev) -> dict:
         "shape": [size, F], "dtype": "bfloat16", "n_enq": n_enq}
     print(f"  scatter_merge: bitwise match on {len(sm_cases)} cases + the "
           f"fused dispatch on 4 ring states")
+    out["paged_gather_append"] = paged_kernel_check(torch, dev, g)
     print("PHASE kernels: " + "; ".join(
         f"{k['name']} max_err {k['max_abs_err']:.3g} ms {k['ms']:.4f} "
         f"(plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, bound "
         f"{k['bound_ms']:.4f} by {k['bound_by']})" for k in out.values()))
     return out
+
+
+def paged_kernel_check(torch, dev, g) -> dict:
+    """The paged append + gather kernel against its plain version: the
+    decode path's shapes (a bucket of C = 16 rows of a 32-row identity
+    table, M = 8 pages of 16 rows, bf16 pools of 2 x 128 = 256 features:
+    512-byte rows) and the edge cases, bit for bit; then timed."""
+    from repro_torch.core.stage_mesh import stage2_capacity
+    from repro_torch.kernels.paged_attention import (paged_gather_append_cuda,
+                                                     paged_gather_append_ref)
+    i32 = torch.int32
+    C, M, F = stage2_capacity(BATCH, TARGET_P), (SEQ + DEC_TOKENS) // PAGE, 256
+    P = BATCH * M + 1
+
+    def pools(dt, width, n=P):
+        ps = [torch.randn(n, PAGE, width, generator=g, device=dev).to(dt)
+              for _ in range(2)]
+        for p in ps:
+            p[0] = 0
+        return ps
+
+    table = 1 + torch.arange(BATCH * M, dtype=i32, device=dev).reshape(
+        BATCH, M)
+    rows = torch.randperm(BATCH, generator=g, device=dev)[:C]
+    main_bt = table[rows].contiguous()
+    main_pos = torch.full((C,), SEQ + 5, dtype=i32, device=dev)
+    main_pos[C - 3:] = M * PAGE            # three flush rows: the sentinel
+    main_bt[C - 3:] = 0                    # ... with NULL tables
+    a_main, b_main = pools(torch.bfloat16, F)
+    new = [torch.randn(C, F, generator=g, device=dev).to(torch.bfloat16)
+           for _ in range(2)]
+    shared = main_bt.clone()
+    shared[1, 0] = shared[0, 4]            # a page two rows read
+    null_tail = main_bt.clone()
+    null_tail[2, (SEQ + 5) // PAGE] = 0    # a NULL tail entry
+    cases = [(a_main, b_main, new[0], new[1], main_bt, main_pos),
+             (a_main, b_main, new[0], new[1], shared, main_pos),
+             (a_main, b_main, new[0], new[1], null_tail, main_pos),
+             (a_main, b_main, new[0], new[1], main_bt,
+              torch.randint(0, M * PAGE, (C,), generator=g, device=dev,
+                            dtype=i32))]
+    fa, fb = pools(torch.float32, 16, 12)
+    cases.append((fa, fb, torch.randn(3, 16, generator=g, device=dev),
+                  torch.randn(3, 16, generator=g, device=dev),
+                  torch.tensor([[1, 2, 0], [1, 3, 0], [4, 5, 6]], dtype=i32,
+                               device=dev),
+                  torch.tensor([5, 6, 40], dtype=i32, device=dev)))
+    oa, ob = pools(torch.bfloat16, 7, 6)   # 14-byte rows: 1-byte words
+    cases.append((oa, ob, torch.randn(2, 7, generator=g, device=dev).to(
+        torch.bfloat16), torch.randn(2, 7, generator=g, device=dev).to(
+        torch.bfloat16), torch.tensor([[1, 2], [3, 0]], dtype=i32,
+                                      device=dev),
+        torch.tensor([17, 4], dtype=i32, device=dev)))
+    for a, b, an, bn, bt, pos in cases:
+        got = paged_gather_append_cuda(a.clone(), b.clone(), an, bn, bt, pos)
+        want = paged_gather_append_ref(a.clone(), b.clone(), an, bn, bt, pos)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"paged_gather_append {tuple(a.shape)} {a.dtype} B="
+              f"{bt.shape[0]} differs")
+        check(not got[2][0].any() and not got[3][0].any(),
+              "paged_gather_append wrote into the NULL page")
+
+    # time it at the main shapes, the pools reused (the appends rewrite the
+    # same bytes at every call)
+    args = (a_main, b_main, new[0], new[1], main_bt, main_pos)
+    es = 2
+    n_append = int(((main_pos < M * PAGE) & (main_bt.gather(
+        1, (main_pos // PAGE).clamp(max=M - 1)[:, None].long())[:, 0] > 0)
+                    ).sum())
+    n_pages_read = int(torch.unique(main_bt).numel())  # flush rows: page 0
+    nbytes = (2 * n_pages_read * PAGE * F * es   # distinct pages read, 2 pools
+              + 2 * C * M * PAGE * F * es        # gathered slabs written
+              + 2 * 2 * n_append * F * es        # appended rows: read + write
+              + C * M * 4 + C * 4)               # table and positions
+    b_ms, b_by = bound(nbytes, 0)
+    take = main_bt.long()
+    tail = main_bt.gather(1, (main_pos // PAGE).clamp(max=M - 1)[:, None]
+                          .long())[:, 0]
+    live = (main_pos < M * PAGE) & (tail > 0)
+    idx = (tail[live].long(), (main_pos[live] % PAGE).long())
+    new_live = (new[0][live], new[1][live])
+
+    def library():
+        a_main.index_put_(idx, new_live[0])
+        b_main.index_put_(idx, new_live[1])
+        return a_main[take], b_main[take]
+
+    print(f"  paged_gather_append: bitwise match on {len(cases)} cases "
+          f"(sentinel, NULL tail, shared page, fp32, 14-byte rows)")
+    return {
+        "name": "paged_gather_append", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_gather_append.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:55",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: paged_gather_append_cuda(*args)),
+        "plain_ms": time_ms(torch, lambda: paged_gather_append_ref(*args)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, library),
+        "library_call": "pool.index_put_((page, row), new) + pool[bt], "
+                        "both pools",
+        "shape": [C, M, PAGE, F], "dtype": "bfloat16", "pool_pages": P,
+        "n_append": n_append, "n_pages_read": n_pages_read}
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+def decode_phase(torch, dev, kernels: dict, params, cfg) -> None:
+    from repro_torch.core import early_exit as ee
+    from repro_torch.core import exit_decision as ed
+    from repro_torch.core.stage_mesh import stage2_capacity
+    from repro_torch.kernels.exit_decision import exit_decision_cuda
+    from repro_torch.kernels.fused_dispatch import scatter_merge_cuda
+    from repro_torch.kernels.paged_attention import paged_gather_append_cuda
+    from repro_torch.runtime import serve_api
+    from repro_torch.runtime import serve_loop as SL
+    from repro_torch.runtime.scheduler import Request
+
+    wrappers = {"exit_decision": exit_decision_cuda,
+                "scatter_merge": scatter_merge_cuda,
+                "paged_gather_append": paged_gather_append_cuda}
+    spec0 = ee.default_spec(cfg)
+    max_len = SEQ + DEC_TOKENS
+    cal = np.random.default_rng(3).integers(0, cfg.vocab,
+                                            (DEC_REQUESTS, SEQ),
+                                            dtype=np.int32)
+    conf = SL.decode_step0_confidences(params, cfg, spec0, cal, max_len)
+    c_thr = ed.calibrate_threshold(conf, 1.0 - TARGET_P)
+    spec = ee.EarlyExitSpec(exit_layer=spec0.exit_layer, c_thr=c_thr)
+    cap = stage2_capacity(BATCH, TARGET_P)
+    sc = SL.ServeConfig(capacity=cap, c_thr=c_thr)
+    print(f"  decode: calibrated c_thr {c_thr!r} on the first decode step "
+          f"of {DEC_REQUESTS} prompts for p {TARGET_P}; stage-2 capacity "
+          f"{cap}, ring {sc.queue_depth * cap} rows, pages of {PAGE}")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab,
+                                                (DEC_REQUESTS, SEQ),
+                                                dtype=np.int32)
+
+    def server(page_size, c=sc, s=spec):
+        return serve_api.build(params, cfg, s, c, mode="decode",
+                               page_size=page_size, device=dev)
+
+    for page_size in (None, PAGE):               # warm-up, off the count
+        server(page_size).generate(prompts[:BATCH], PAGE)
+    torch.cuda.synchronize()
+
+    def serve(page_size):
+        sched = serve_api.build(params, cfg, spec, sc, mode="decode",
+                                scheduler="sync", n_slots=BATCH,
+                                page_size=page_size, device=dev)
+        for i in range(DEC_REQUESTS):
+            sched.submit(Request(sample_id=i, prompt=prompts[i],
+                                 n_tokens=DEC_TOKENS))
+        before = {k: w.launches for k, w in wrappers.items()}
+        results = sched.run()                    # generate returns numpy
+        makespan = sched.clock.now()
+        return results, sched, makespan, {
+            k: w.launches - before[k] for k, w in wrappers.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    runs = {name: serve(ps) for name, ps in (("dense", None),
+                                             ("paged", PAGE))}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the decode path")
+        kernels[k]["launches"] += n
+        kernels[k].setdefault("launches_by_path", {})["decode"] = n
+    for name, (results, _, _, _) in runs.items():
+        check(set(results) == set(range(DEC_REQUESTS)),
+              f"decode {name}: {DEC_REQUESTS - len(results)} requests "
+              f"unanswered")
+        check(all(len(v) == DEC_TOKENS for v in results.values()),
+              f"decode {name}: a request got the wrong number of tokens")
+    check(runs["paged"][0] == runs["dense"][0],
+          "decode: paged tokens differ from dense tokens")
+    n_l2 = cfg.n_layers - spec.exit_layer
+    st_p = runs["paged"][1].stats
+    check(runs["paged"][3]["paged_gather_append"] == st_p.n_buckets * n_l2,
+          "decode: paged kernel launches != buckets x stage-2 layers")
+
+    # the paged DecodeServer against the dense one on the first batch
+    first = prompts[:BATCH]
+    out_d = server(None).generate(first, DEC_TOKENS)
+    out_p = server(PAGE).generate(first, DEC_TOKENS)
+    check(out_d["logits"].shape == (BATCH, DEC_TOKENS, cfg.vocab),
+          "decode logits shape")
+    check(bool(np.isfinite(out_d["logits"]).all()), "non-finite decode "
+          "logits")
+    check(np.array_equal(out_d["logits"], out_p["logits"]) and
+          np.array_equal(out_d["tokens"], out_p["tokens"]),
+          "decode: paged DecodeServer logits differ from dense on the first "
+          "batch")
+    del out_d, out_p
+
+    # a short run against the host loop (plain decision, per-row Python),
+    # at the calibrated threshold, and all-hard through a ring smaller than
+    # the batch (stalls, the fused dispatch's spill)
+    short = prompts[:8, :SEQ]
+    for c, depth in ((c_thr, 4), (1.1, 1)):
+        sc_s = SL.ServeConfig(capacity=4 if c > 1 else cap, queue_depth=depth,
+                              c_thr=c)
+        sp = ee.EarlyExitSpec(exit_layer=spec.exit_layer, c_thr=c)
+        for ps in (None, PAGE):
+            dev_out = server(ps, sc_s, sp).generate(short, PAGE)
+            host_out = serve_api.build(params, cfg, sp, sc_s, mode="decode",
+                                       host=True, device=dev).generate(
+                                           short, PAGE)
+            check(np.array_equal(dev_out["tokens"], host_out["tokens"]) and
+                  np.array_equal(dev_out["logits"], host_out["logits"]),
+                  f"decode: DecodeServer (page_size={ps}) differs from "
+                  f"HostLoopDecoder at c_thr={c!r}")
+
+    def window():
+        server(PAGE).generate(first, PAGE)
+        torch.cuda.synchronize()
+
+    shares = kernel_shares(torch, window, kernels, wrappers)
+    for name, (results, sched, makespan, counts) in runs.items():
+        st = sched.stats
+        n_tok = sum(len(v) for v in results.values())
+        print(f"  decode {name}: {DEC_REQUESTS} requests x {DEC_TOKENS} "
+              f"tokens (prompts of {SEQ}) in {makespan:.3f} s: goodput "
+              f"{n_tok / makespan:.1f} tokens/s; realized q "
+              f"{st.realized_q:.4f} ({st.n_stage2} of {st.n_decisions} "
+              f"decisions to stage 2, {st.n_buckets} buckets, stalls "
+              f"{st.n_stalls}); stage-2 cache {st.cache_hbm_bytes} bytes; "
+              f"launches {counts}")
+    print(f"  decode peak memory {peak / 2**30:.2f} GiB (both runs)")
+    print(f"PHASE decode: ok; launches {launches}; kernel time share "
+          f"{shares}")
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +646,7 @@ def serve_phase(torch, dev, kernels: dict) -> None:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
         kernels[k]["launches"] = n
+        kernels[k]["launches_by_path"] = {"prefill": n}
 
     st = server.stats
     check(len(results) == N_REQUESTS and set(results) == set(range(
@@ -434,8 +685,14 @@ def serve_phase(torch, dev, kernels: dict) -> None:
                                               - host_res[lo + i]).max()))
     check(d_host <= LOGIT_ATOL, f"server vs host loop max |d| {d_host:.3g}")
 
-    shares = kernel_shares(torch, params, cfg, spec, sc, toks, dev, kernels,
-                           wrappers)
+    def window():
+        srv = serve_api.build(params, cfg, spec, sc, device=dev)
+        SL.serve_dataset(srv, toks[:2 * BATCH], batch=BATCH)
+        ee.serve_batch(params, cfg, spec, torch.as_tensor(
+            toks[:BATCH], device=dev), capacity=BATCH)
+        torch.cuda.synchronize()
+
+    shares = kernel_shares(torch, window, kernels, wrappers)
     print(f"  served {N_REQUESTS} requests x {SEQ} tokens in {serve_s:.3f} "
           f"s: {N_REQUESTS / serve_s:.1f} samples/s; realized q "
           f"{st.realized_q:.4f}; exited {st.n_exited}, stage 2 "
@@ -447,31 +704,27 @@ def serve_phase(torch, dev, kernels: dict) -> None:
           f"{inside}")
     print(f"PHASE serve: ok; launches {launches}; kernel time share "
           f"{shares}")
+    return params, cfg
 
 
-def kernel_shares(torch, params, cfg, spec, sc, toks, dev, kernels,
-                  wrappers) -> str:
-    """Per-kernel share of device time over one torch.profiler window (a
-    fresh server over two batches, then serve_batch on one); CUDA events
-    and the phase-3 kernel times when the profiler reports no device
-    time."""
+KERNEL_NAMES = {"exit_decision": ("exit_decision_partial",
+                                  "exit_decision_combine"),
+                "gather_compact": ("gather_compact_partition",
+                                   "gather_rows"),
+                "scatter_merge": ("scatter_merge_rows",),
+                "paged_gather_append": ("paged_append", "paged_gather")}
+
+
+def kernel_shares(torch, window, kernels, wrappers) -> str:
+    """Per-kernel share of device time over one torch.profiler window of
+    ``window()`` (which ends in a synchronize), beside the same window's
+    host-clock time without the profiler: the device busy share. CUDA
+    events and the phase-3 kernel times when the profiler reports no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import early_exit as ee
-    from repro_torch.runtime import serve_api
-    from repro_torch.runtime import serve_loop as SL
 
-    def window():
-        srv = serve_api.build(params, cfg, spec, sc, device=dev)
-        SL.serve_dataset(srv, toks[:2 * BATCH], batch=BATCH)
-        ee.serve_batch(params, cfg, spec, torch.as_tensor(
-            toks[:BATCH], device=dev), capacity=BATCH)
-        torch.cuda.synchronize()
-
-    names = {"exit_decision": ("exit_decision_partial",
-                               "exit_decision_combine"),
-             "gather_compact": ("gather_compact_partition", "gather_rows"),
-             "scatter_merge": ("scatter_merge_rows",)}
+    names = {k: KERNEL_NAMES[k] for k in wrappers}
     t0 = time.perf_counter()
     window()                                       # host clock, no profiler
     wall_ms = (time.perf_counter() - t0) * 1e3

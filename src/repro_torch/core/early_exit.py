@@ -1,5 +1,6 @@
 """Early-exit staging for LM backbones (the port of
-``repro/core/early_exit.py``, prefill).
+``repro/core/early_exit.py``): the prefill stages, the one-token decode
+stages and the cache split between them.
 
 ATHEENA's CDFG form (Fig. 3): stage 1 = embed + layers [0, k) + exit head,
 stage 2 = layers [k, N) + final head. The exit head is RMSNorm + the tied
@@ -87,6 +88,56 @@ def stage2_prefill(params, cfg: ArchConfig, spec: EarlyExitSpec,
     h, caches = T.run_layers(bb, cfg, h, spec.exit_layer, cfg.n_layers,
                              param_base_sb=base)
     return T.head(bb, cfg, h[:, -1]), caches
+
+
+def stage1_decode(params, cfg: ArchConfig, spec: EarlyExitSpec,
+                  token: torch.Tensor, caches, step):
+    """One-token stage 1: embed + layers [0, k) against the stage-1 segment
+    caches + exit head. Returns (hidden (B, 1, d), new caches, exit logits
+    (B, V))."""
+    bb = params["backbone"]
+    h = T.embed_tokens(bb, cfg, token)
+    h, ncaches = T.run_layers(bb, cfg, h, 0, spec.exit_layer, mode="decode",
+                              caches=caches, step=step)
+    return h, ncaches, exit_head(params, cfg, h[:, 0])
+
+
+def stage2_decode(params, cfg: ArchConfig, spec: EarlyExitSpec,
+                  h: torch.Tensor, caches, step, *, presliced: bool = True,
+                  presliced_params: bool = False):
+    """One-token stage 2 on the compacted hard slab h (C, 1, d). ``caches``
+    is the stage-2 SEGMENT cache (``split_caches``) by default; its batch
+    is the bucket's, not stage 1's. ``presliced_params`` marks a stage-2
+    param slice (``split_params``). Returns (logits (C, V), new caches)."""
+    bb = params["backbone"]
+    base = _stage2_base_sb(cfg, spec) if presliced else 0
+    pbase = _stage2_base_sb(cfg, spec) if presliced_params else 0
+    h, ncaches = T.run_layers(bb, cfg, h, spec.exit_layer, cfg.n_layers,
+                              mode="decode", caches=caches, step=step,
+                              cache_base_sb=base, param_base_sb=pbase)
+    return T.head(bb, cfg, h[:, 0]), ncaches
+
+
+def split_caches(cfg: ArchConfig, spec: EarlyExitSpec, caches):
+    """Slice a full-depth cache tree into its (stage1, stage2) segments at
+    the exit's superblock, as ``run_layers`` slices. The 'blocks' leaves
+    are views of the stacked leaves (no copy)."""
+    k_sb = _stage2_base_sb(cfg, spec)
+
+    def sl(tree, lo, hi):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: sl(v, lo, hi) for k, v in tree.items()}
+        return tree[lo:hi]
+
+    s1 = {"first": caches["first"],
+          "blocks": tuple(sl(b, 0, k_sb) for b in caches["blocks"]),
+          "rem": []}
+    s2 = {"first": [],
+          "blocks": tuple(sl(b, k_sb, None) for b in caches["blocks"]),
+          "rem": caches["rem"]}
+    return s1, s2
 
 
 def split_params(cfg: ArchConfig, spec: EarlyExitSpec, params):

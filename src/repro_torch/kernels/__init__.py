@@ -6,6 +6,8 @@ exit_decision   -- the Exit Decision layer (section III-C.1, Eq. 4) as one
 gather_compact  -- stream compaction; the Conditional Buffer (III-C.2).
 fused_dispatch  -- decision + slot map + ring scatter-merge, the in-ring
                    enqueue of the serving loop.
+paged_attention -- the paged decode cache: tail-page append, then a gather
+                   of every row's pages.
 
 Each subpackage holds kernel.py (the wrapper that launches the CUDA kernel
 from ``csrc/`` and counts its launches) and ref.py (the plain version).

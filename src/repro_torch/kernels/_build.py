@@ -35,6 +35,8 @@ SIGNATURES = {
                             _P, _P, _P),
     "repro_gather_compact": (_P, _P, _I, _LL, _I, _P, _P, _P, _P, _P),
     "repro_scatter_merge": (_P, _I, _P, _P, _LL, _P),
+    "repro_paged_gather_append": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _LL, _LL, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

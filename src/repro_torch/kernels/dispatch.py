@@ -19,10 +19,15 @@ import torch
 
 from repro_torch.kernels.exit_decision.kernel import exit_decision_cuda
 from repro_torch.kernels.exit_decision.ref import exit_decision_ref
-from repro_torch.kernels.fused_dispatch.kernel import fused_dispatch_cuda
-from repro_torch.kernels.fused_dispatch.ref import fused_dispatch_ref
+from repro_torch.kernels.fused_dispatch.kernel import (fused_dispatch_cuda,
+                                                       scatter_merge_cuda)
+from repro_torch.kernels.fused_dispatch.ref import (fused_dispatch_ref,
+                                                    scatter_merge_ref)
 from repro_torch.kernels.gather_compact.kernel import gather_compact_cuda
 from repro_torch.kernels.gather_compact.ref import gather_compact_ref
+from repro_torch.kernels.paged_attention.kernel import \
+    paged_gather_append_cuda
+from repro_torch.kernels.paged_attention.ref import paged_gather_append_ref
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -71,3 +76,38 @@ def fused_dispatch_op(logits: torch.Tensor, active: Optional[torch.Tensor],
     ring's free space are NOT written (the caller spills them via src)."""
     fn = fused_dispatch_cuda if on_card(logits) else fused_dispatch_ref
     return fn(logits, active, sample_ids, payload, ring, c_thr)
+
+
+def scatter_merge_op(src_map: torch.Tensor, x: torch.Tensor,
+                     dst: torch.Tensor) -> torch.Tensor:
+    """Row scatter without a host sync: dst row r <- x row ``src_map[r]``
+    where that is >= 0, IN PLACE. src_map (R,) int32; x (C, F) and dst
+    (R, F) contiguous, one dtype. The ring scatter-merge kernel on the card
+    (the serving loop's bucket merges use it beside the ring enqueue)."""
+    fn = scatter_merge_cuda if on_card(dst) else scatter_merge_ref
+    return fn(src_map, x, dst)
+
+
+def paged_gather_append(a_pool, b_pool, a_new, b_new, block_tables, pos):
+    """Paged-cache append + gather for one attention layer.
+
+    a_pool/b_pool: (P, page, *F) page pools (page 0 = NULL, all zeros),
+    updated IN PLACE; a_new/b_new: (B, *F) new-token rows; block_tables:
+    (B, M) int32; pos: (B,) int32 write positions (>= M * page skips the
+    append). Returns (gathered_a (B, M, page, *Fa), gathered_b, a_pool,
+    b_pool): the gathered slabs reshaped to (B, M * page, *F) are the dense
+    cache rows, appended token included. Feature dims are flattened for
+    the kernel and restored here."""
+    fa, fb = a_pool.shape[2:], b_pool.shape[2:]
+    n_pages, page = a_pool.shape[:2]
+    B, M = block_tables.shape
+    if not on_card(a_pool):
+        return paged_gather_append_ref(a_pool, b_pool, a_new, b_new,
+                                       block_tables, pos)
+    ga, gb, _, _ = paged_gather_append_cuda(
+        a_pool.view(n_pages, page, -1), b_pool.view(n_pages, page, -1),
+        a_new.reshape(B, -1).contiguous(), b_new.reshape(B, -1).contiguous(),
+        block_tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous())
+    return (ga.view((B, M, page) + tuple(fa)),
+            gb.view((B, M, page) + tuple(fb)), a_pool, b_pool)

@@ -1,14 +1,25 @@
 """Serving CLI: ``PYTHONPATH=src python -m repro_torch.launch.serve
---arch qwen2-1.5b [--smoke] [--device cuda]``.
+--arch qwen2-1.5b [--smoke] [--device cuda] [--mode decode]``.
 
-The port of ``repro/launch/serve.py``, prefill mode: builds the two-stage
-EE server (stage 2 bucketed at capacity = ceil((p + slack) * B), hard
-samples carried between batches in the device ring) over weights drawn
-from a seeded ``torch.Generator``, serves ``--requests`` random requests
-of ``--seq`` tokens in batches of ``--batch``, and prints one JSON object:
-``throughput_samples_per_s`` plus ``ServeStats.as_dict`` (the realized q
-series summarized). The flags of the modes not ported yet are accepted
-and rejected with a message naming the ROADMAP.md item.
+The port of ``repro/launch/serve.py``. Weights are drawn from a seeded
+``torch.Generator``; requests are random tokens from a seeded numpy
+generator. Stage 2 is bucketed at capacity = ceil((p + slack) * B).
+
+``--mode prefill`` (default) builds the two-stage EE server (hard samples
+carried between batches in the device ring), serves ``--requests``
+requests of ``--seq`` tokens in batches of ``--batch`` and reports
+``throughput_samples_per_s``.
+
+``--mode decode --scheduler sync`` serves open-loop decode requests
+(Poisson arrivals at ``--arrival-rate``, default all at t=0) in static
+batches of ``--batch`` over the step-synchronous ``DecodeServer``: prompts
+of ``--seq`` tokens, ``--decode-tokens`` tokens each, the stage-2 cache
+paged with ``--page-size``. It reports ``goodput_tokens_per_s``.
+
+Both print one JSON object with ``ServeStats.as_dict`` (the realized q
+series summarized), with the JAX CLI's keys. The flags of the planes not
+ported yet are accepted and rejected with a message naming the ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -25,19 +36,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_arch, get_smoke, list_archs
 from repro_torch.runtime import serve_api
 from repro_torch.runtime import serve_loop as SL
+from repro_torch.runtime.scheduler import Request, poisson_arrivals
 
 # flags of the JAX CLI whose planes are not ported: flag -> (default,
 # ROADMAP.md item)
 _NOT_PORTED = {
-    "mode": ("prefill", "Queue 1, items 8-10 (decode serving)"),
-    "decode_tokens": (32, "Queue 1, items 8-10 (decode serving)"),
-    "scheduler": ("sync", "Queue 1, item 9 (schedulers)"),
     "replicas": (1, "Queue 1, item 14 (fleet router)"),
     "routing_policy": ("drift_aware", "Queue 1, item 14 (fleet router)"),
     "tenant_slos": (None, "Queue 1, item 14 (fleet router)"),
-    "page_size": (None, "Queue 1, item 10 (paged decode)"),
-    "n_pages": (None, "Queue 1, item 10 (paged decode)"),
-    "arrival_rate": (float("inf"), "Queue 1, item 9 (open-loop arrivals)"),
+    "n_pages": (None, "Queue 1, items 9-10 (continuous paged pool)"),
     "controller": (False, "Queue 1, item 14 (drift controller)"),
     "controller_band": (0.05, "Queue 1, item 14 (drift controller)"),
     "controller_cooldown": (8, "Queue 1, item 14 (drift controller)"),
@@ -80,9 +87,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu only on request)")
     ap.add_argument("--mode", default="prefill",
                     choices=("prefill", "decode"))
+    ap.add_argument("--decode-tokens", type=int, default=32,
+                    help="tokens to generate per request (decode mode)")
+    ap.add_argument("--scheduler", default="sync",
+                    choices=("sync", "continuous"),
+                    help="decode scheduling policy (continuous: not "
+                         "ported yet, rejected)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="page the stage-2 decode cache with this page "
+                         "size (decode mode; seq + decode-tokens must be "
+                         "a multiple)")
+    ap.add_argument("--arrival-rate", type=float, default=float("inf"),
+                    help="open-loop Poisson request rate (req/s) in decode "
+                         "mode; inf = all requests arrive at t=0")
     for flag, (default, _) in _NOT_PORTED.items():
-        if flag == "mode":
-            continue
         name = "--" + flag.replace("_", "-")
         if isinstance(default, bool):
             ap.add_argument(name, action="store_true",
@@ -99,8 +117,10 @@ def main(argv=None) -> int:
     for flag, (default, item) in _NOT_PORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to "
-                             f"repro_torch yet (ROADMAP.md {item}); this "
-                             f"CLI serves prefill only")
+                             f"repro_torch yet (ROADMAP.md {item})")
+    if args.scheduler == "continuous":
+        raise SystemExit("--scheduler continuous is not ported to "
+                         "repro_torch yet (ROADMAP.md Queue 1, items 9-10)")
 
     dev = resolve_device(args.device)
     # the exit and final heads are fp32 matmuls: keep them out of TF32
@@ -111,6 +131,10 @@ def main(argv=None) -> int:
     params = ee.init_ee_params(cfg, spec, gen)
     cap = stage2_capacity(args.batch, args.p)
     sc = SL.ServeConfig(capacity=cap, c_thr=args.c_thr)
+    if args.mode == "decode":
+        return _serve_decode(args, cfg, spec, params, sc, dev)
+    # prefill: --page-size, --decode-tokens and --arrival-rate are decode
+    # knobs, ignored here as the JAX CLI ignores them
     server = serve_api.build(params, cfg, spec, sc, mode="prefill",
                              device=dev)
     toks = np.random.default_rng(1).integers(
@@ -125,6 +149,36 @@ def main(argv=None) -> int:
                "throughput_samples_per_s": args.requests / dt,
                **_summarized_stats(server.stats)}
     print(json.dumps(payload, indent=1))
+    return 0
+
+
+def _serve_decode(args, cfg, spec, params, sc, dev) -> int:
+    """Open-loop decode requests through the sync scheduler; prints the
+    goodput (decode tokens/s over the scheduler clock's makespan)."""
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (args.requests, args.seq), dtype=np.int32)
+    sched = serve_api.build(params, cfg, spec, sc, mode="decode",
+                            scheduler=args.scheduler, n_slots=args.batch,
+                            max_len=args.seq + args.decode_tokens,
+                            page_size=args.page_size, device=dev)
+    arrivals = poisson_arrivals(args.requests, args.arrival_rate, seed=2)
+    for i in range(args.requests):
+        sched.submit(Request(sample_id=i, prompt=prompts[i],
+                             n_tokens=args.decode_tokens,
+                             arrival_time=float(arrivals[i])))
+    results = sched.run()
+    makespan = sched.clock.now()
+    if len(results) != args.requests or any(
+            len(v) != args.decode_tokens for v in results.values()):
+        raise RuntimeError("a decode request got the wrong number of "
+                           "tokens")
+    n_tok = sum(len(v) for v in results.values())
+    payload = {"arch": args.arch, "mode": "decode",
+               "scheduler": args.scheduler, "capacity": sc.capacity,
+               "n_slots": args.batch, "arrival_rate": args.arrival_rate,
+               "goodput_tokens_per_s": n_tok / makespan,
+               **_summarized_stats(sched.stats)}
+    print(json.dumps(payload, indent=1, default=float))
     return 0
 
 

@@ -145,3 +145,40 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]    # (B, KH, G, S, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# single-step decode attention
+# ----------------------------------------------------------------------------
+
+def masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor,
+                            valid: torch.Tensor) -> torch.Tensor:
+    """The ONE masked single-step attention core every decode path shares.
+
+    q: (B, H, D); caches: (B, Smax, KH, D); valid: (B, Smax) bool, the cache
+    positions that take part. Callers build ``valid`` from their own
+    bookkeeping (prefix length, paged block tables); the arithmetic is the
+    same, so dense and paged decode agree bit for bit given the same cache
+    bytes. Scores, softmax and the PV product in fp32, cast to q's dtype."""
+    B, Smax, KH, D = k_cache.shape
+    H = q.shape[1]
+    G = H // KH
+    qf = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    s = s * (1.0 / math.sqrt(D))
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """Single-step attention against a cache. q: (B, H, D); caches: (B,
+    Smax, KH, D); cache_len: (B,) valid lengths (the new token's k/v
+    already written at cache_len - 1)."""
+    pos = torch.arange(k_cache.shape[1], device=k_cache.device)[None, :]
+    return masked_decode_attention(q, k_cache, v_cache,
+                                   pos < cache_len[:, None])

@@ -1,5 +1,6 @@
 """Backbone assembly (the port of ``repro/models/transformer.py``, dense
-attention blocks, prefill).
+attention blocks): prefill over a whole sequence, and one-token decode
+against per-layer caches.
 
 The layer stack keeps the JAX package's layout
     [first_k_dense layers] ++ [n_superblocks x pattern] ++ [remainder]
@@ -81,14 +82,23 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
 # apply
 # ----------------------------------------------------------------------------
 
-def _apply_block(params, cfg: ArchConfig, h: torch.Tensor):
-    """Attention + MLP block, prefill. Returns (h, {"k", "v"} cache)."""
+def _apply_block(params, cfg: ArchConfig, h: torch.Tensor, *,
+                 mode: str = "prefill", cache=None, step=None):
+    """Attention + MLP block. Prefill returns (h, {"k", "v"} cache); decode
+    (h: (B, 1, d)) writes the new token into ``cache`` at ``step`` and
+    returns (h, the updated cache)."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
-    y, (k, v) = attn.attention_fwd(params["attn"], cfg, x)
+    if mode == "decode":
+        y, kv = attn.attention_decode(params["attn"], cfg, x, cache, step)
+        new_cache = dict(cache)
+        new_cache.update(kv)
+    else:
+        y, (k, v) = attn.attention_fwd(params["attn"], cfg, x)
+        new_cache = {"k": k, "v": v}
     h = h + y
     x = rmsnorm(params["norm2"], h, cfg.norm_eps)
     h = h + mlp(params["mlp"], x)
-    return h, {"k": k, "v": v}
+    return h, new_cache
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor):
@@ -97,18 +107,27 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor):
 
 
 def run_layers(params, cfg: ArchConfig, h: torch.Tensor, lo: int, hi: int,
-               *, param_base_sb: int = 0):
-    """Run backbone layers [lo, hi) in prefill mode. lo/hi land on
-    superblock boundaries (or 0 / n_layers). ``param_base_sb`` is the
-    superblock the 'blocks' leaves of a pre-sliced param tree start at.
+               *, mode: str = "prefill", caches=None, step=None,
+               cache_base_sb: int = 0, param_base_sb: int = 0):
+    """Run backbone layers [lo, hi). lo/hi land on superblock boundaries
+    (or 0 / n_layers). ``mode`` is "prefill" (a whole sequence) or
+    "decode" (one token against ``caches`` at ``step``). ``param_base_sb``
+    / ``cache_base_sb`` are the superblocks the 'blocks' leaves of a
+    pre-sliced param tree / segment cache (``ee.split_caches``) start at.
     Returns (h, caches) with caches in the JAX package's layout: {first:
-    [...], blocks: tuple per pattern position of {k, v} stacked (n_sb, B,
-    S, KH, hd), rem: [...]}."""
-    caches: Dict[str, Any] = {"first": [], "blocks": None, "rem": []}
+    [...], blocks: tuple per pattern position of dicts whose leaves stack
+    along a leading superblock axis (n_sb, ...), rem: [...]}."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode == "decode" and caches is None:
+        raise ValueError("decode mode needs caches")
+    out: Dict[str, Any] = {"first": [], "blocks": None, "rem": []}
     for i in range(cfg.first_k_dense):
         if lo <= i < hi:
-            h, c = _apply_block(params["first"][i], cfg, h)
-            caches["first"].append(c)
+            c = caches["first"][i] if mode == "decode" else None
+            h, nc = _apply_block(params["first"][i], cfg, h, mode=mode,
+                                 cache=c, step=step)
+            out["first"].append(nc)
 
     pl = cfg.pattern_len
     s_lo = max(0, (lo - cfg.first_k_dense + pl - 1) // pl)
@@ -116,21 +135,32 @@ def run_layers(params, cfg: ArchConfig, h: torch.Tensor, lo: int, hi: int,
     s_hi = max(s_lo, (s_hi_layer - cfg.first_k_dense) // pl)
     if s_hi > s_lo and cfg.n_superblocks:
         per_pos = [[] for _ in range(pl)]
-        for sb in range(s_lo - param_base_sb, s_hi - param_base_sb):
+        for sb in range(s_lo, s_hi):
             for pos in range(pl):
-                bp = _index_tree(params["blocks"][pos], sb)
-                h, c = _apply_block(bp, cfg, h)
-                per_pos[pos].append(c)
-        caches["blocks"] = tuple(
-            {k: torch.stack([c[k] for c in cs]) for k in ("k", "v")}
-            for cs in per_pos)
+                bp = _index_tree(params["blocks"][pos], sb - param_base_sb)
+                c = (_index_tree(caches["blocks"][pos], sb - cache_base_sb)
+                     if mode == "decode" else None)
+                h, nc = _apply_block(bp, cfg, h, mode=mode, cache=c,
+                                     step=step)
+                per_pos[pos].append(nc)
+        # paged pools were appended to in place through the per-superblock
+        # views: hand back views of the incoming leaves, not a stacked copy
+        # of every pool
+        out["blocks"] = tuple(
+            {k: x[s_lo - cache_base_sb:s_hi - cache_base_sb]
+             for k, x in caches["blocks"][pos].items()}
+            if mode == "decode" and "bt" in caches["blocks"][pos] else
+            {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+            for pos, cs in enumerate(per_pos))
 
     rem_base = cfg.first_k_dense + cfg.n_superblocks * pl
     for i in range(cfg.n_remainder):
         if lo <= rem_base + i < hi:
-            h, c = _apply_block(params["rem"][i], cfg, h)
-            caches["rem"].append(c)
-    return h, caches
+            c = caches["rem"][i] if mode == "decode" else None
+            h, nc = _apply_block(params["rem"][i], cfg, h, mode=mode,
+                                 cache=c, step=step)
+            out["rem"].append(nc)
+    return h, out
 
 
 def _index_tree(tree, i: int):
@@ -145,3 +175,79 @@ def head(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return unembed(params["embed"], h)
     return h.float() @ params["head"].float()
+
+
+# ----------------------------------------------------------------------------
+# caches and whole-model decode (single exit; EE staging lives in
+# core/early_exit.py and reuses run_layers with slicing)
+# ----------------------------------------------------------------------------
+
+def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      device) -> dict:
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} block caches are not ported; "
+                                  f"{_NOT_PORTED}")
+    return attn.init_kv_cache(cfg, batch, max_len, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+    """Zero decode caches in the param layout ('blocks' leaves stacked
+    (n_sb, batch, max_len, KH, hd))."""
+    check_supported(cfg)
+
+    def stack_cache(pos: int):
+        if cfg.n_superblocks == 0:
+            return None
+        one = _init_block_cache(cfg, cfg.pattern[pos], batch, max_len,
+                                device)
+        return {k: x[None].repeat((cfg.n_superblocks,) + (1,) * x.dim())
+                for k, x in one.items()}
+
+    return {"first": [_init_block_cache(cfg, cfg.layer_kind(i), batch,
+                                        max_len, device)
+                      for i in range(cfg.first_k_dense)],
+            "blocks": tuple(stack_cache(p) for p in range(cfg.pattern_len)),
+            "rem": [_init_block_cache(cfg, cfg.pattern[i], batch, max_len,
+                                      device)
+                    for i in range(cfg.n_remainder)]}
+
+
+def pad_caches(cfg: ArchConfig, caches, max_len: int):
+    """Grow prefill caches along their time axis to ``max_len`` with zeros,
+    so decode steps have slots to write into."""
+    def pad_block(c):
+        if c is None:
+            return None
+        c = dict(c)
+        for key in ("k", "v"):
+            x = c[key]
+            cur = x.shape[-3]
+            if cur < max_len:
+                c[key] = torch.nn.functional.pad(
+                    x, (0, 0, 0, 0, 0, max_len - cur))
+        return c
+
+    return {"first": [pad_block(c) for c in caches["first"]],
+            "blocks": (None if caches["blocks"] is None else
+                       tuple(pad_block(c) for c in caches["blocks"])),
+            "rem": [pad_block(c) for c in caches["rem"]]}
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            max_len: int = 0):
+    """Returns (last logits (B, V), caches). ``max_len`` > the sequence
+    pads the caches so that later decode steps have write slots."""
+    h = embed_tokens(params, cfg, tokens)
+    h, caches = run_layers(params, cfg, h, 0, cfg.n_layers)
+    if max_len > tokens.shape[1]:
+        caches = pad_caches(cfg, caches, max_len)
+    return head(params, cfg, h[:, -1]), caches
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, step):
+    """token: (B, 1) int; step: the absolute position (int) or (B,)
+    per-row positions. Returns (logits (B, V), new caches)."""
+    h = embed_tokens(params, cfg, token)
+    h, caches = run_layers(params, cfg, h, 0, cfg.n_layers, mode="decode",
+                           caches=caches, step=step)
+    return head(params, cfg, h[:, 0]), caches

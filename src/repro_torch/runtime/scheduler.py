@@ -1,5 +1,6 @@
-"""Serving substrate shared by the port's servers (the port of the ring and
-stats part of ``repro/runtime/scheduler.py``).
+"""Serving substrate shared by the port's servers, and the sync decode
+scheduler (the port of ``repro/runtime/scheduler.py``, all but the
+continuous scheduler and its page allocator).
 
   * ``ServeConfig`` / ``ServeStats``: the serving knobs and counters, with
     the JAX package's versioned ``as_dict`` key set (schema v3);
@@ -10,20 +11,31 @@ stats part of ``repro/runtime/scheduler.py``).
     ring is updated IN PLACE where the JAX package donated it and returned
     a new one; each function returns the same dict;
   * ``RingQueue``: chunked enqueue under backpressure plus bucket pops
-    (the paper's Fig. 7 sizing story).
+    (the paper's Fig. 7 sizing story);
+  * ``_gather_rows`` / ``_scatter_rows``: sample-major row moves between a
+    store and a compacted slab, with no host sync;
+  * ``Request``, ``Clock`` / ``LogicalClock``, ``poisson_arrivals``: the
+    open-loop request plumbing;
+  * ``SyncScheduler``: static batch formation over a step-synchronous
+    decode server's ``generate``.
 
-The continuous scheduler, the fault points around the enqueue and the
-harvest timeouts are not ported yet (ROADMAP.md).
+The continuous scheduler and its ``PageAllocator`` (ROADMAP.md Queue 1,
+items 9-10), the event feed and the drift controller (item 14), the fault
+points around the enqueue and the harvest timeouts are not ported yet.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Deque, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.kernels import dispatch
+from repro_torch.runtime.serve_api import RequestQueue
 
 # bounded history so long-running streams keep O(1)-ish stats memory
 _SERIES_CAP = 65536
@@ -72,6 +84,7 @@ class ServeStats:
     stage2_chips: int = 1
     latencies: Deque[float] = field(
         default_factory=lambda: deque(maxlen=_SERIES_CAP), repr=False)
+    submit_times: Dict[int, float] = field(default_factory=dict, repr=False)
     realized_q_series: Deque[float] = field(
         default_factory=lambda: deque(maxlen=_SERIES_CAP), repr=False)
     _q_window: Deque[float] = field(
@@ -98,6 +111,24 @@ class ServeStats:
     def record_bucket(self, fill: float) -> None:
         self.n_buckets += 1
         self.bucket_fill_sum += fill
+
+    def record_submit(self, sample_id: int, t: float) -> None:
+        self.submit_times[sample_id] = t
+
+    def record_finish(self, sample_id: int, t: float) -> None:
+        """Submit -> finish latency; a finish with no recorded submit is
+        ignored, so servers that never record submits stay latency-free."""
+        t0 = self.submit_times.pop(sample_id, None)
+        if t0 is not None:
+            self.latencies.append(t - t0)
+
+    @property
+    def n_finished(self) -> int:
+        return len(self.latencies)
+
+    @property
+    def decisions_per_sample(self) -> float:
+        return self.n_decisions / max(self.n_samples, 1)
 
     @staticmethod
     def _pct(series, pct: float) -> float:
@@ -140,8 +171,7 @@ class ServeStats:
                 "n_samples": self.n_samples, "n_decisions": self.n_decisions,
                 "n_exited": self.n_exited, "n_stage2": self.n_stage2,
                 "n_stalls": self.n_stalls, "realized_q": self.realized_q,
-                "decisions_per_sample":
-                    self.n_decisions / max(self.n_samples, 1),
+                "decisions_per_sample": self.decisions_per_sample,
                 "mean_bucket_fill": self.mean_bucket_fill,
                 "stage1_chips": self.stage1_chips,
                 "stage2_chips": self.stage2_chips,
@@ -271,6 +301,11 @@ class RingQueue:
         self.count = 0
         self._row_nbytes = 0
 
+    def reset(self) -> None:
+        """Forget the buffer: the next ``ensure`` allocates one for the new
+        stream's row shapes."""
+        self._buf, self.count, self._row_nbytes = None, 0, 0
+
     def ensure(self, row_spec) -> dict:
         """Allocate (or return) the device buffer for rows ``row_spec`` (a
         pytree of ``(shape, dtype)``)."""
@@ -335,3 +370,169 @@ def _gather_rows(rows, ids: torch.Tensor):
     row 0; their content is never used)."""
     take = torch.clamp(ids, min=0).long()
     return pytree.tree_map(lambda m: m[take], rows)
+
+
+def _scatter_rows(rows, bucket_rows, ids: torch.Tensor):
+    """Scatter updated bucket rows back into a sample-major store IN PLACE
+    (the JAX package donated the store and scattered with drop mode): store
+    row ``ids[j]`` <- bucket row j for every ``ids[j] >= 0``; flush ids (-1)
+    write nothing. The inverse map is built on the device and the rows move
+    through the ring scatter-merge kernel (``dispatch.scatter_merge_op``),
+    so nothing syncs with the host. Returns ``rows``."""
+    leaves = pytree.tree_leaves(rows)
+    if not leaves:
+        return rows
+    b = leaves[0].shape[0]
+    dev = ids.device
+    # store row -> bucket lane; flush lanes land in a scratch slot past the
+    # end (live ids are distinct, so no two lanes claim one store row)
+    src_map = torch.full((b + 1,), -1, dtype=torch.int32, device=dev)
+    safe = torch.where(ids >= 0, ids, b).long()
+    src_map[safe] = torch.arange(ids.shape[0], dtype=torch.int32, device=dev)
+    src_map = src_map[:b]
+
+    def put(m, r):
+        if m[0].numel() == 0:
+            return
+        dispatch.scatter_merge_op(src_map, r.reshape(r.shape[0], -1)
+                                  .to(m.dtype).contiguous(),
+                                  m.view(b, -1))
+
+    pytree.tree_map(put, rows, bucket_rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# open-loop request plumbing: arrivals, clocks
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Request:
+    """One decode request in the admission queue. ``arrival_time`` is in the
+    scheduler clock's time base (seconds); a request is admissible once the
+    clock passes it."""
+    sample_id: int
+    prompt: np.ndarray          # (S,) int32
+    n_tokens: int               # total tokens to emit (incl. prefill token)
+    arrival_time: float = 0.0
+
+
+class Clock:
+    """Wall clock with fast-forward: ``now`` is seconds since construction
+    plus all skipped idle time, so an idle server jumps to the next arrival
+    instead of sleeping, while service time stays real wall time."""
+
+    def __init__(self):
+        self._t0 = time.perf_counter()
+        self._skip = 0.0
+
+    def now(self) -> float:
+        return time.perf_counter() - self._t0 + self._skip
+
+    def advance_to(self, t: float) -> None:
+        gap = t - self.now()
+        if gap > 0:
+            self._skip += gap
+
+
+class LogicalClock:
+    """Deterministic clock for tests: only ``advance_to`` moves it."""
+
+    def __init__(self, t: float = 0.0):
+        self._t = t
+
+    def now(self) -> float:
+        return self._t
+
+    def advance_to(self, t: float) -> None:
+        self._t = max(self._t, t)
+
+
+def poisson_arrivals(n: int, rate: float, seed: int = 0) -> np.ndarray:
+    """Cumulative Poisson-process arrival times for ``n`` requests at
+    ``rate`` (requests/second); ``rate`` <= 0 or inf means all at t=0."""
+    if not np.isfinite(rate) or rate <= 0:
+        return np.zeros(n)
+    gaps = np.random.default_rng(seed).exponential(1.0 / rate, size=n)
+    return np.cumsum(gaps)
+
+
+# ---------------------------------------------------------------------------
+# the sync policy: static batch formation over a step-synchronous server
+# ---------------------------------------------------------------------------
+
+_EVENTS_NOT_PORTED = ("the request-lifecycle event feed is not ported: "
+                      "ROADMAP.md Queue 1, item 14 (observability)")
+
+
+class SyncScheduler:
+    """Batch formation over a step-synchronous decode server
+    (``DecodeServer`` or ``HostLoopDecoder``): admit requests in arrival
+    order into static batches of ``n_slots``, wait for the batch's last
+    arrival, run ``generate`` to the batch's longest request (finished
+    samples ride along until the whole batch completes), truncate per
+    request. Prompts within a batch share one length. A partial tail batch
+    runs at its own, smaller shape; the stats count real traffic only.
+
+    ``max_len`` bounds requests when given (``validate_request``).
+    ``request_migration`` raises, as in the JAX package (the sync policy
+    has no live slot pool). The event feed (``events=``) is not ported."""
+
+    def __init__(self, server, n_slots: int, clock=None,
+                 max_len: Optional[int] = None, events=None):
+        if events is not None:
+            raise NotImplementedError(_EVENTS_NOT_PORTED)
+        self.server = server
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.clock = clock or Clock()
+        self.queue = RequestQueue(max_len=max_len,
+                                  is_dup=lambda sid: sid in self.results)
+        self.results: Dict[int, List[int]] = {}
+
+    @property
+    def stats(self) -> ServeStats:
+        return self.server.stats
+
+    def request_migration(self, plan) -> None:
+        raise NotImplementedError(
+            "the sync policy has no live slot pool to migrate — live "
+            "migration needs the continuous scheduler")
+
+    @property
+    def queue_len(self) -> int:
+        return len(self.queue)
+
+    def next_arrival(self) -> Optional[float]:
+        return self.queue.next_arrival()
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def step(self) -> str:
+        """Form and run ONE static batch (waiting for its last arrival).
+        Returns "busy" when a batch ran, "idle" when the queue is empty."""
+        if not self.queue:
+            return "idle"
+        batch = [self.queue.popleft()
+                 for _ in range(min(self.n_slots, len(self.queue)))]
+        self.clock.advance_to(max(r.arrival_time for r in batch))
+        for r in batch:
+            self.stats.record_submit(r.sample_id, r.arrival_time)
+        prompts = np.stack([np.asarray(r.prompt, np.int32) for r in batch])
+        n_max = max(r.n_tokens for r in batch)
+        out = self.server.generate(prompts, n_max)
+        t = self.clock.now()
+        for i, r in enumerate(batch):
+            self.results[r.sample_id] = [
+                int(x) for x in out["tokens"][i, :r.n_tokens]]
+            self.stats.record_finish(r.sample_id, t)
+        return "busy"
+
+    def drain(self) -> Dict[int, List[int]]:
+        while self.step() != "idle":
+            pass
+        return self.results
+
+    def run(self) -> Dict[int, List[int]]:
+        return self.drain()

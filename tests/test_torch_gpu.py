@@ -130,3 +130,66 @@ def test_server_on_card_matches_host_loop(cuda):
         assert set(dev_res) == set(host_res) == set(range(24))
         for sid in range(24):
             np.testing.assert_array_equal(dev_res[sid], host_res[sid])
+
+
+@pytest.mark.parametrize("B,M,page,F,dtype", [
+    (16, 8, 16, 256, torch.bfloat16),     # the serving path's shapes
+    (4, 3, 4, 16, torch.float32), (3, 5, 2, 7, torch.bfloat16),
+    (2, 2, 8, 3, torch.float32)])
+def test_paged_gather_append_kernel(cuda, B, M, page, F, dtype):
+    from repro_torch.kernels.paged_attention import (
+        paged_gather_append_cuda, paged_gather_append_ref)
+    g = torch.Generator(device=cuda).manual_seed(B * M + page)
+    P = 1 + B * M + 2
+    pools = [torch.randn(P, page, F, generator=g, device=cuda).to(dtype)
+             for _ in range(2)]
+    for p in pools:
+        p[0] = 0
+    new = [torch.randn(B, F, generator=g, device=cuda).to(dtype)
+           for _ in range(2)]
+    bt = (1 + torch.randperm(P - 1, generator=g, device=cuda)[:B * M]
+          ).reshape(B, M).to(torch.int32)
+    bt[0, M - 1] = 0                                  # a NULL tail entry
+    bt[B - 1, 0] = bt[0, 0]                           # a page two rows read
+    pos = torch.randint(0, M * page, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    pos[0] = (M - 1) * page + 1                       # appends into NULL
+    if B > 2:
+        pos[1] = M * page                             # the sentinel
+    got = paged_gather_append_cuda(pools[0].clone(), pools[1].clone(),
+                                   new[0], new[1], bt, pos)
+    want = paged_gather_append_ref(pools[0].clone(), pools[1].clone(),
+                                   new[0], new[1], bt, pos)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not got[2][0].any() and not got[3][0].any()
+
+
+def test_paged_decode_server_on_card(cuda):
+    """Smoke-size qwen2-1.5b: the paged DecodeServer equals the dense one
+    and the host loop bit for bit, and launches the paged kernel once per
+    stage-2 layer of every bucket."""
+    from repro_torch.kernels.paged_attention import paged_gather_append_cuda
+    cfg = smoke_config(ARCHS["qwen2-1.5b"])
+    spec0 = ee.default_spec(cfg)
+    params = ee.init_ee_params(cfg, spec0,
+                               torch.Generator(device=cuda).manual_seed(0))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (6, 8),
+                                               dtype=np.int32)
+    spec = ee.EarlyExitSpec(exit_layer=spec0.exit_layer, c_thr=1.1)
+    sc = SL.ServeConfig(capacity=4, queue_depth=1, c_thr=1.1)
+    dense = serve_api.build(params, cfg, spec, sc, mode="decode",
+                            device=cuda).generate(prompt, 8)
+    before = paged_gather_append_cuda.launches
+    srv = serve_api.build(params, cfg, spec, sc, mode="decode", page_size=4,
+                          device=cuda)
+    paged = srv.generate(prompt, 8)
+    n_layers2 = cfg.n_layers - spec.exit_layer
+    assert paged_gather_append_cuda.launches - before == \
+        srv.stats.n_buckets * n_layers2
+    host = serve_api.build(params, cfg, spec, sc, mode="decode", host=True,
+                           device=cuda).generate(prompt, 8)
+    for out in (dense, host):
+        np.testing.assert_array_equal(out["tokens"], paged["tokens"])
+        np.testing.assert_array_equal(out["logits"], paged["logits"])

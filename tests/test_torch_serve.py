@@ -196,8 +196,15 @@ def test_build_rejects_what_is_not_ported(setup):
     _, cfg, _, params = setup
     spec = ee.EarlyExitSpec(exit_layer=2)
     sc = SL.ServeConfig(capacity=2)
+    assert isinstance(serve_api.build(params, cfg, spec, sc, mode="decode",
+                                      device="cpu"), SL.DecodeServer)
+    assert isinstance(serve_api.build(params, cfg, spec, sc, mode="decode",
+                                      scheduler="sync", n_slots=2,
+                                      device="cpu"), sch.SyncScheduler)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_api.build(params, cfg, spec, sc, mode="decode", device="cpu")
+        serve_api.build(params, cfg, spec, sc, mode="decode",
+                        scheduler="continuous", n_slots=2, max_len=8,
+                        device="cpu")
     with pytest.raises(ValueError, match="scheduler"):
         serve_api.build(params, cfg, spec, sc, scheduler="sync",
                         device="cpu")
@@ -219,9 +226,24 @@ def test_cli_prefill_payload():
     assert payload["throughput_samples_per_s"] > 0
 
 
-@pytest.mark.parametrize("argv", [["--controller"], ["--mode", "decode"],
+@pytest.mark.parametrize("argv", [["--controller"],
+                                  ["--scheduler", "continuous"],
                                   ["--replicas", "2"],
-                                  ["--page-size", "16"]])
+                                  ["--n-pages", "8"]])
 def test_cli_rejects_unported_flags(argv):
     with pytest.raises(SystemExit, match="not ported"):
         serve_cli.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_cli_prefill_ignores_page_size():
+    """--page-size is a decode knob: prefill serves as without it (the JAX
+    CLI ignores it there too)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(["--smoke", "--device", "cpu", "--requests", "8",
+                             "--batch", "4", "--seq", "6", "--page-size",
+                             "16"])
+    assert rc == 0
+    payload = json.loads(out.getvalue())
+    assert payload["mode"] == "prefill" and payload["n_samples"] == 8
+    assert payload["cache_pages_total"] == 0
