@@ -20,6 +20,18 @@ CUDA toolkit. Phases, each printing its result on its own line:
      ``serve_batch`` on the first batch; every kernel must have launched in
      that window; the server is held against ``serve_batch`` and against
      ``HostLoopServer`` (which runs no kernel);
+  3b. F1     -- the peak device memory of one full-width attention layer's
+     single-device prefill (the plain blocked path) at B 8, S 2048 and S
+     4096: it must grow with S, not S^2 (ratio <= 2.5);
+  4a. mesh   -- the mesh prefill cell (``launch/steps.make_prefill_cell``)
+     on two ranks sharing the card (``gloo``, mesh data 1 x model 2), each
+     holding the same full-width qwen2-1.5b: B 32 x S 512 (attention split
+     by batch) and B 1 x S 4096 (split by query rows, rank 1 at offset
+     2048); the flash-attention kernel must have launched once per
+     attention layer of both stages on each rank; in bf16 both ranks must
+     equal the single device with the kernel run unsplit bit for bit, and
+     the same cells in fp32 the single-device ``serve_batch`` (plain
+     blocked attention) within 1e-3;
   5. decode  -- the same model and weights, threshold calibrated on the
      first decode step's confidences for p = 0.25: 64 requests of 64-token
      prompts, 64 tokens each, in static batches of 32 through
@@ -36,6 +48,8 @@ non-zero before that line is printed. Without a card, or without the rest
 of the repository beside it, the script exits non-zero at once.
 """
 import json
+import os
+import pickle
 import subprocess
 import sys
 import time
@@ -46,11 +60,20 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 CONF_RTOL = 1e-5        # fp32 sum of exps, reduced in another order
 MARGIN = 1e-4           # decisions compare exactly where |c_thr*s - 1| > 1e-4
 LOGIT_ATOL = 5e-2       # bf16 stage-2 activations, GEMMs of other row counts
+FP32_LOGIT_ATOL = 1e-3  # the fp32 mesh cells against the fp32 blocked path
 N_REQUESTS, BATCH, SEQ, TARGET_P = 256, 32, 64, 0.25
 DEC_REQUESTS, DEC_TOKENS, PAGE = 64, 64, 16    # decode: prompts of SEQ
+# the flash kernel against its plain version, |got - want| <= rtol |want|
+# + atol: both compute in fp32 and differ in the order of the sums; bf16
+# adds one rounding of the output (one bf16 ulp is at most 2^-7 |want|)
+FLASH_TOL = {"float32": (0.0, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+MESH_CELLS = {"batch": (32, 512), "seq": (1, 4096)}   # (B, S) per cell
+F1_BATCH, F1_SEQS, F1_MAX_RATIO = 8, (2048, 4096), 2.5
+RANK_TIMEOUT_S = 600
 
 
 def fail(msg: str) -> None:
@@ -98,8 +121,21 @@ def main() -> None:
     # -- 3. kernels against their plain versions ---------------------------
     kernels = kernel_phase(torch, dev)
 
+    # -- 3b. the memory of single-device prefill attention -----------------
+    f1_phase(torch, dev)
+
+    # -- 4a. the mesh prefill path ----------------------------------------
+    params, cfg, init_s = build_model(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"PHASE model: {cfg.name}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}, exit after "
+          f"layer {cfg.default_exit_layers()[0]}, {n_params / 1e9:.3f} B "
+          f"params, init {init_s:.1f} s")
+    mesh_phase(torch, dev, kernels, params, cfg)
+
     # -- 4. the prefill path ----------------------------------------------
-    params, cfg = serve_phase(torch, dev, kernels)
+    serve_phase(torch, dev, kernels, params, cfg)
 
     # -- 5. the decode path -----------------------------------------------
     decode_phase(torch, dev, kernels, params, cfg)
@@ -334,6 +370,7 @@ def kernel_phase(torch, dev) -> dict:
     print(f"  scatter_merge: bitwise match on {len(sm_cases)} cases + the "
           f"fused dispatch on 4 ring states")
     out["paged_gather_append"] = paged_kernel_check(torch, dev, g)
+    out["flash_attention"] = flash_kernel_check(torch, dev, g)
     print("PHASE kernels: " + "; ".join(
         f"{k['name']} max_err {k['max_abs_err']:.3g} ms {k['ms']:.4f} "
         f"(plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, bound "
@@ -442,6 +479,382 @@ def paged_kernel_check(torch, dev, g) -> dict:
                         "both pools",
         "shape": [C, M, PAGE, F], "dtype": "bfloat16", "pool_pages": P,
         "n_append": n_append, "n_pages_read": n_pages_read}
+
+
+def flash_kernel_check(torch, dev, g) -> dict:
+    """The flash-attention kernel against its plain version at the mesh
+    prefill cell's shard shapes in bf16 (qwen2-1.5b: 12 query heads over 2
+    kv heads of 128), a windowed case, a ragged Sq of 200, fp32 and the
+    narrower head dims, and fully masked rows; then the two shard shapes
+    timed beside the plain version, SDPA with the same mask, and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    H, KH, D = 12, 2, 128
+    B_b, S_b = MESH_CELLS["batch"]
+    S_s = MESH_CELLS["seq"][1]
+
+    def qkv(B, Sq, Sk, h, kh, d, dt):
+        # the model's (B, S, heads, D) layout, handed over as strided views
+        return [torch.randn(B, s, n, d, generator=g, device=dev).to(dt)
+                .transpose(1, 2) for s, n in ((Sq, h), (Sk, kh), (Sk, kh))]
+
+    main = {  # name: (B, Sq, Sk, q_offset)
+        "batch": (B_b // 2, S_b, S_b, 0),              # one rank's shard
+        "seq": (1, S_s // 2, S_s, S_s // 2)}           # rank 1's rows
+    cases = [(name, B, Sq, Sk, off, None, H, KH, D, torch.bfloat16)
+             for name, (B, Sq, Sk, off) in main.items()]
+    cases += [("window", 2, 384, 384, 0, 128, H, KH, D, torch.bfloat16),
+              ("ragged", 2, 200, 200, 0, None, H, KH, D, torch.bfloat16),
+              ("fp32", 2, 256, 512, 256, None, 8, 2, 64, torch.float32),
+              ("d32", 1, 130, 130, 0, 40, 4, 4, 32, torch.float32),
+              ("d16", 2, 70, 140, 70, None, 8, 1, 16, torch.bfloat16),
+              ("masked", 1, 64, 128, 256, 32, 4, 2, 32, torch.float32)]
+    err, timed = 0.0, {}
+    for name, B, Sq, Sk, off, win, h, kh, d, dt in cases:
+        q, k, v = qkv(B, Sq, Sk, h, kh, d, dt)
+        got = flash_attention_cuda(q, k, v, off, causal=True, window=win)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, off, causal=True, window=win)
+        diff = (got.float() - want.float()).abs()
+        e = diff.max().item()
+        rtol, atol = FLASH_TOL[str(dt).split(".")[-1]]
+        over = (diff - rtol * want.float().abs() - atol).max().item()
+        check(over <= 0, f"flash_attention {name} {(B, h, Sq, d)} vs "
+                         f"{(B, kh, Sk, d)} off {off} window {win} {dt}: "
+                         f"max err {e:.3g}, {over:.3g} past {rtol:g} "
+                         f"|want| + {atol:g}")
+        check(bool(torch.isfinite(got).all()), f"flash_attention {name}: "
+                                               f"non-finite output")
+        if name == "masked":
+            check(not got.any(), "flash_attention: fully masked rows not 0")
+        err = max(err, e)
+        if name in main:
+            timed[name] = (q, k, v, off, e)
+    print(f"  flash_attention: match on {len(cases)} cases (each element "
+          f"within rtol |want| + atol: bf16 {FLASH_TOL['bfloat16']}, fp32 "
+          f"{FLASH_TOL['float32']}; max err {err:.3g})")
+
+    rows = []
+    for name, (q, k, v, off, e) in timed.items():
+        B, _, Sq, _ = q.shape
+        Sk = k.shape[2]
+        qi = off + torch.arange(Sq, device=dev)[:, None]
+        mask = qi >= torch.arange(Sk, device=dev)[None, :]
+        pairs = int(mask.sum()) * B * H
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v
+        b_ms, b_by = bound(nbytes, 0)
+        f_ms = 4.0 * D * pairs / BF16_FLOP_PER_S * 1e3
+        if f_ms > b_ms:
+            b_ms, b_by = f_ms, "operations"
+        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, off))
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, off),
+                        iters=5)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        rows.append({"case": name, "q": list(q.shape), "kv": list(k.shape),
+                     "q_offset": off, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                     "pairs": pairs, "max_abs_err": e})
+        print(f"  flash_attention {name}: q {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} offset {off}: {ms:.4f} ms (plain "
+              f"{plain:.4f}, SDPA {lib:.4f}, bound {b_ms:.4f} by {b_by}: "
+              f"{pairs} pairs x {4 * D} flops at 989 TFLOP/s bf16)")
+    head = rows[[r["case"] for r in rows].index("seq")]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+            "launches": 0, "max_abs_err": err, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "attn_mask, enable_gqa=True)",
+            "shape": head["q"], "dtype": "bfloat16", "cases": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b
+# ---------------------------------------------------------------------------
+
+def f1_phase(torch, dev) -> None:
+    """Peak memory of one full-width attention layer's single-device
+    prefill (``attention_fwd``: the plain blocked path) at two lengths."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.registry import get_arch
+    cfg = get_arch("qwen2-1.5b")
+    p = attn.init_attention(torch.Generator(device=dev).manual_seed(5), cfg)
+    got = {}
+    for S in F1_SEQS:
+        x = torch.randn(F1_BATCH, S, cfg.d_model, device=dev,
+                        dtype=cfg.act_dtype()) * 0.5
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, _ = attn.attention_fwd(p, cfg, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(out).all()), f"F1: non-finite at S {S}")
+        got[S] = (peak, peak - resident, wall)
+        del x, out
+    (p2, w2, t2), (p4, w4, t4) = (got[s] for s in F1_SEQS)
+    ratio = w4 / w2
+    check(ratio <= F1_MAX_RATIO, f"F1: attention working set grew "
+                                 f"{ratio:.2f}x from S {F1_SEQS[0]} to "
+                                 f"{F1_SEQS[1]} (> {F1_MAX_RATIO})")
+    print(f"PHASE F1: one qwen2-1.5b attention layer, prefill B {F1_BATCH}: "
+          f"S {F1_SEQS[0]} peak {p2 / 2**20:.1f} MiB (working set "
+          f"{w2 / 2**20:.1f} MiB, {t2 * 1e3:.1f} ms host clock), S "
+          f"{F1_SEQS[1]} peak {p4 / 2**20:.1f} MiB (working set "
+          f"{w4 / 2**20:.1f} MiB, {t4 * 1e3:.1f} ms); working-set ratio "
+          f"{ratio:.3f} (limit {F1_MAX_RATIO}; peak ratio {p4 / p2:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# phase 4a
+# ---------------------------------------------------------------------------
+
+def fp32_model(params, cfg):
+    """The same weights in fp32, and the config that runs them in fp32."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(v) for v in t)
+        return t.float() if t is not None and t.is_floating_point() else t
+    return cast(params), cfg.replace(dtype="float32", param_dtype="float32")
+
+
+def mesh_rank(rank: int, world: int, out_dir: str, cells: dict,
+              device: str) -> None:
+    """One rank of the mesh phase, on ``device`` (cuda:0, beside the other
+    rank): the same model from the same seed, a (data 1, model 2) mesh,
+    each cell once to warm up and once counted, in bf16 and in fp32."""
+    import torch
+    from repro_torch.core import early_exit as ee
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import hints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    params, cfg, _ = build_model(torch, dev)
+    steps.assert_replicated(params)
+    models = {"bfloat16": (params, cfg)}
+    mesh = M.make_mesh((1, world), ("data", "model"))
+    res = {}
+    for (dt, name), (toks, c_thr) in cells.items():   # bf16 cells first
+        if dt not in models:                # the fp32 copy after them, so
+            models[dt] = fp32_model(params, cfg)   # bf16 peaks exclude it
+        p, c = models[dt]
+        spec = ee.EarlyExitSpec(exit_layer=c.default_exit_layers()[0],
+                                c_thr=c_thr)
+        B, S = toks.shape
+        cell = steps.make_prefill_cell(c, mesh, seq_len=S, global_batch=B,
+                                       p=TARGET_P, spec=spec)
+        tok = torch.as_tensor(toks, device=dev)
+        cell.step_fn(p, tok)                        # warm-up, off the count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = cell.step_fn(p, tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with hints.use_mesh(mesh):
+            kinds = [hints.attn_split(S, B), hints.attn_split(
+                S, cell.meta["capacity"])]
+        res[dt, name] = {"launches": flash_attention_cuda.launches,
+                         "ms": ms, "peak": torch.cuda.max_memory_allocated(),
+                         "kinds": [None if k is None else k[0]
+                                   for k in kinds],
+                         "capacity": cell.meta["capacity"],
+                         **{k: v.cpu().numpy() for k, v in out.items()}}
+        del out
+        if dt == "bfloat16":
+            res[dt, name]["profile"] = rank_profile(
+                torch, lambda: cell.step_fn(p, tok))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def rank_profile(torch, run) -> dict:
+    """One more run of a rank's cell under torch.profiler: device time in
+    all, in the flash kernel, and the host time of the all-gathers (gloo
+    moves the shards through the host), beside the same run's host clock
+    without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = flash = 0.0
+    gathers = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total",
+                        getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+            device += t
+            flash += t if "flash_fwd" in evt.key else 0.0
+        elif "gather" in evt.key.lower():
+            gathers[evt.key] = (evt.count, evt.cpu_time_total / 1e3)
+    return {"wall_ms": wall, "device_ms": device, "flash_ms": flash,
+            "gathers": gathers}
+
+
+def unsplit_kernel_core(q, k, v, *, causal, window, softcap,
+                        use_kernel=False):
+    """attention_core as one rank that holds every shard: the kernel on
+    the whole (B, S) input at offset 0. The kernel computes every (row,
+    head) from its own q row and the keys its tile of 64 rows visits, so
+    the mesh's shards, gathered, must equal this bit for bit."""
+    from repro_torch.kernels import dispatch
+    o = dispatch.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), 0, causal=causal,
+                                 window=window)
+    return o.transpose(1, 2)
+
+
+def mesh_phase(torch, dev, kernels: dict, params, cfg) -> None:
+    """The mesh prefill cell on two ranks sharing the card, in bf16 (the
+    serving dtype) and in fp32, each held against the single-device
+    ``serve_batch`` (plain blocked attention) in the same dtype, and the
+    bf16 run also against the single device with the kernel unsplit."""
+    import tempfile
+    from repro_torch.core import early_exit as ee
+    from repro_torch.core import exit_decision as ed
+    from repro_torch.core.stage_mesh import stage2_capacity
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention
+
+    models = {"bfloat16": (params, cfg), "float32": fp32_model(params, cfg)}
+    cells, want = {}, {}
+    for dt, (p, c) in models.items():
+        spec0 = ee.default_spec(c)
+        for i, (name, (B, S)) in enumerate(MESH_CELLS.items()):
+            toks = np.random.default_rng(10 + i).integers(
+                0, c.vocab, (B, S), dtype=np.int32)
+            tok = torch.as_tensor(toks, device=dev)
+            _, _, logits, _ = ee.stage1_prefill(p, c, spec0, tok)
+            conf = ed.softmax_confidence(logits)
+            # B 32: p = 0.25 of the rows to stage 2; B 1: the row to stage 2
+            c_thr = (float(conf[0]) * 2 if B == 1 else
+                     ed.calibrate_threshold(conf, 1.0 - TARGET_P))
+            spec = ee.EarlyExitSpec(exit_layer=spec0.exit_layer, c_thr=c_thr)
+            cap = stage2_capacity(B, TARGET_P)
+            t0 = time.perf_counter()
+            out = ee.serve_batch(p, c, spec, tok, capacity=cap)
+            torch.cuda.synchronize()
+            w = {k: v.cpu().numpy() for k, v in out.items()}
+            w["ms"] = (time.perf_counter() - t0) * 1e3
+            w["clear"] = ((float(np.float32(c_thr)) / conf.double() - 1.0)
+                          .abs() > MARGIN).cpu().numpy()
+            if dt == "bfloat16":
+                # the kernel unsplit, the gate of the bf16 mesh run
+                plain = attention.attention_core
+                attention.attention_core = unsplit_kernel_core
+                try:
+                    w["unsplit"] = {k: v.cpu().numpy() for k, v in
+                                    ee.serve_batch(p, c, spec, tok,
+                                                   capacity=cap).items()}
+                finally:
+                    attention.attention_core = plain
+            want[dt, name] = w
+            cells[dt, name] = (toks, c_thr)
+            del out, logits
+    del models
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
+        t0 = time.perf_counter()
+        M.run_ranks(mesh_rank, 2, backend="gloo",
+                    args=(tmp, cells, str(dev)),
+                    timeout_s=RANK_TIMEOUT_S, init_timeout_s=300,
+                    rdzv_dir=tmp)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    n_attn = cfg.n_layers       # both stages: every attention layer
+    total = 0
+    for (dt, name), w in want.items():
+        for r, res in enumerate(ranks):
+            got = res[dt, name]
+            what = f"mesh {dt} {name}: rank {r}"
+            check(got["launches"] == n_attn,
+                  f"{what} launched the flash kernel {got['launches']} "
+                  f"times, not once per attention layer ({n_attn})")
+            check(got["kinds"] == [name, name],
+                  f"{what} split as {got['kinds']}")
+            check(np.isfinite(got["logits"]).all(), f"{what}: non-finite")
+            for key in ("logits", "exit_mask", "n_hard", "overflow"):
+                check(np.array_equal(got[key], ranks[0][dt, name][key]),
+                      f"{what} {key} differs from rank 0")
+            clear = w["clear"]
+            check(np.array_equal(got["exit_mask"][clear],
+                                 w["exit_mask"][clear]),
+                  f"{what} exit decisions differ from the single device "
+                  f"off the {MARGIN:g} margin")
+            if clear.all():
+                check(int(got["n_hard"]) == int(w["n_hard"]),
+                      f"{what} n_hard differs from the single device")
+            agree = got["exit_mask"] == w["exit_mask"]
+            got["max_d"] = float(np.abs(got["logits"][agree]
+                                        - w["logits"][agree]).max())
+            if dt == "float32":
+                check(got["max_d"] <= FP32_LOGIT_ATOL,
+                      f"{what} logits max |d| {got['max_d']:.3g} > "
+                      f"{FP32_LOGIT_ATOL} from the single device")
+            else:
+                for key in ("logits", "exit_mask", "n_hard", "overflow"):
+                    check(np.array_equal(got[key], w["unsplit"][key]),
+                          f"{what} {key} differs from the single device "
+                          f"with the kernel unsplit")
+            total += got["launches"]
+        B, S = MESH_CELLS[name]
+        def gap(a, b):
+            return float(np.abs(a["logits"] - b["logits"]).max())
+        extra = (f" (limit {FP32_LOGIT_ATOL:g})" if dt == "float32" else
+                 f"; equal bit for bit to the single device with the kernel "
+                 f"unsplit. Single-device logits (std "
+                 f"{float(w['logits'].std()):.3g}, max |logit| "
+                 f"{float(np.abs(w['logits']).max()):.3g}): kernel unsplit "
+                 f"vs blocked {gap(w['unsplit'], w):.3g}")
+        for r, res in enumerate(ranks):
+            prof = res[dt, name].get("profile")
+            if prof:
+                print(f"  mesh {dt} {name} rank {r} profile: "
+                      f"{prof['wall_ms']:.1f} ms host clock, device "
+                      f"{prof['device_ms']:.3f} ms (busy "
+                      f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+                      f"flash kernel {prof['flash_ms']:.3f} ms; host time "
+                      f"of gathers (count, ms): {prof['gathers']}")
+        print(f"  mesh {dt} {name}: B {B} x S {S}, stage-2 capacity "
+              f"{ranks[0][dt, name]['capacity']}, n_hard "
+              f"{int(w['n_hard'])}; single device (blocked attention) "
+              f"{w['ms']:.1f} ms; "
+              + "; ".join(f"rank {r}: split {res[dt, name]['kinds'][0]}, "
+                          f"flash launches {res[dt, name]['launches']}, "
+                          f"{res[dt, name]['ms']:.1f} ms host clock, peak "
+                          f"{res[dt, name]['peak'] / 2**30:.2f} GiB, max |d "
+                          f"logits| vs blocked {res[dt, name]['max_d']:.3g}"
+                          for r, res in enumerate(ranks)) + extra)
+    kernels["flash_attention"]["launches"] = total
+    kernels["flash_attention"]["launches_by_path"] = {"mesh_prefill": total}
+    print(f"PHASE mesh: ok; two gloo ranks on one card, mesh (data 1, model "
+          f"2), {spawn_s:.1f} s with start-up; flash launches {total} "
+          f"({n_attn} a rank a cell a dtype); rows inside the {MARGIN:g} "
+          f"margin: {sum(int((~w['clear']).sum()) for w in want.values())}")
 
 
 # ---------------------------------------------------------------------------
@@ -581,32 +994,35 @@ def decode_phase(torch, dev, kernels: dict, params, cfg) -> None:
 # phase 4
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, dev, kernels: dict) -> None:
+def build_model(torch, dev):
+    """qwen2-1.5b at full width, its weights from torch.Generator seed 0 on
+    ``dev``: the same on every process that calls this on the card."""
     from repro_torch.core import early_exit as ee
-    from repro_torch.core import exit_decision as ed
-    from repro_torch.core.stage_mesh import stage2_capacity
-    from repro_torch.kernels.exit_decision import exit_decision_cuda
-    from repro_torch.kernels.fused_dispatch import scatter_merge_cuda
-    from repro_torch.kernels.gather_compact import gather_compact_cuda
     from repro_torch.models.registry import get_arch
-    from repro_torch.runtime import serve_api
-    from repro_torch.runtime import serve_loop as SL
 
-    wrappers = {"exit_decision": exit_decision_cuda,
-                "gather_compact": gather_compact_cuda,
-                "scatter_merge": scatter_merge_cuda}
     cfg = get_arch("qwen2-1.5b")
     spec0 = ee.default_spec(cfg)
     t0 = time.perf_counter()
     params = ee.init_ee_params(cfg, spec0,
                                torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"  model {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, {cfg.param_dtype}, exit after layer "
-          f"{spec0.exit_layer}, {n_params / 1e9:.3f} B params, init "
-          f"{time.perf_counter() - t0:.1f} s")
+    return params, cfg, time.perf_counter() - t0
+
+
+def serve_phase(torch, dev, kernels: dict, params, cfg) -> None:
+    from repro_torch.core import early_exit as ee
+    from repro_torch.core import exit_decision as ed
+    from repro_torch.core.stage_mesh import stage2_capacity
+    from repro_torch.kernels.exit_decision import exit_decision_cuda
+    from repro_torch.kernels.fused_dispatch import scatter_merge_cuda
+    from repro_torch.kernels.gather_compact import gather_compact_cuda
+    from repro_torch.runtime import serve_api
+    from repro_torch.runtime import serve_loop as SL
+
+    wrappers = {"exit_decision": exit_decision_cuda,
+                "gather_compact": gather_compact_cuda,
+                "scatter_merge": scatter_merge_cuda}
+    spec0 = ee.default_spec(cfg)
 
     # calibrate C_thr on a profiling set so that p_hard ~ 0.25
     s1, _ = SL._stage_fns(params, cfg, spec0)
@@ -704,7 +1120,6 @@ def serve_phase(torch, dev, kernels: dict) -> None:
           f"{inside}")
     print(f"PHASE serve: ok; launches {launches}; kernel time share "
           f"{shares}")
-    return params, cfg
 
 
 KERNEL_NAMES = {"exit_decision": ("exit_decision_partial",
@@ -712,7 +1127,8 @@ KERNEL_NAMES = {"exit_decision": ("exit_decision_partial",
                 "gather_compact": ("gather_compact_partition",
                                    "gather_rows"),
                 "scatter_merge": ("scatter_merge_rows",),
-                "paged_gather_append": ("paged_append", "paged_gather")}
+                "paged_gather_append": ("paged_append", "paged_gather"),
+                "flash_attention": ("flash_fwd",)}
 
 
 def kernel_shares(torch, window, kernels, wrappers) -> str:

@@ -37,6 +37,8 @@ SIGNATURES = {
     "repro_scatter_merge": (_P, _I, _P, _P, _LL, _P),
     "repro_paged_gather_append": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                   _LL, _LL, _P, _P, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
+    + (_LL,) * 12 + (_I, _I, _I, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,4 @@
-"""Kernel dispatch: where each exit-machinery op runs.
+"""Kernel dispatch: where each exit-machinery and attention op runs.
 
 The serving runtime (``runtime/serve_loop.py``) and the one-shot pipeline
 (``core/early_exit.serve_batch``) call the ops here. The choice follows the
@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.kernels.exit_decision.kernel import exit_decision_cuda
 from repro_torch.kernels.exit_decision.ref import exit_decision_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.fused_dispatch.kernel import (fused_dispatch_cuda,
                                                        scatter_merge_cuda)
 from repro_torch.kernels.fused_dispatch.ref import (fused_dispatch_ref,
@@ -111,3 +113,13 @@ def paged_gather_append(a_pool, b_pool, a_new, b_new, block_tables, pos):
         pos.to(torch.int32).contiguous())
     return (ga.view((B, M, page) + tuple(fa)),
             gb.view((B, M, page) + tuple(fb)), a_pool, b_pool)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Blocked causal / windowed GQA attention, the mesh prefill path's
+    per-shard core. q: (B, H, Sq, D); k, v: (B, KH, Sk, D); ``q_offset``
+    the absolute position of q row 0. Returns (B, H, Sq, D) in q.dtype."""
+    fn = flash_attention_cuda if on_card(q) else flash_attention_ref
+    return fn(q, k, v, q_offset, causal=causal, window=window)

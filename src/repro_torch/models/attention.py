@@ -2,23 +2,73 @@
 self-attention for prefill, and one-token decode against a dense or a
 paged KV cache.
 
-On one device the JAX package's ``attention_core`` takes its plain blocked
-path (``blocked_attention``); the port does the same with
-``layers.causal_attention``. The mesh branch and its flash kernel wait for
-the mesh prefill path (ROADMAP.md, Queue 2, K4).
+On one device ``attention_core`` takes the plain blocked path
+(``layers.blocked_attention``), as in the JAX package. Under a mesh with a
+'model' axis (``models/hints.py``) it splits the work over the ranks, by
+batch or by query rows, runs each shard through the flash-attention
+kernel on the card (``kernels.dispatch.flash_attention``) and gathers the
+shards back, so the rest of the layer runs whole on every rank.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import hints
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (apply_rope, causal_attention,
+from repro_torch.models.layers import (apply_rope, blocked_attention,
                                        dense_init, init_rmsnorm,
                                        masked_decode_attention, rmsnorm)
 
 _WINDOW_NOT_PORTED = ("windowed ('lattn') layers and their ring cache are "
                       "not ported: ROADMAP.md Queue 1, item 4")
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: Optional[int],
+                   softcap: Optional[float], use_kernel: bool = False):
+    """q: (B, S, H, D); k, v: (B, S, KH, D). Returns (B, S, H, D).
+
+    With a mesh that ``hints.attn_split`` accepts, this rank computes its
+    shard: "batch" takes B / (batch ranks x model ranks) whole sequences,
+    "seq" the query rows [i S/m, (i+1) S/m) of its batch chunk against the
+    whole K/V at q offset i S/m; the shards are all-gathered over the ranks
+    that split them. ``use_kernel`` runs a shard through
+    ``dispatch.flash_attention`` (the CUDA kernel on a CUDA tensor), else
+    through ``blocked_attention`` at the shard's offset, the same function.
+    softcap and non-causal attention stay on ``blocked_attention``. With no
+    such mesh: ``blocked_attention`` on the whole input."""
+    split = hints.attn_split(q.shape[1], q.shape[0])
+    if split is None or q.shape[1] != k.shape[1]:
+        return blocked_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    kind, baxes = split
+    mesh = hints.mesh()
+    kernel_ok = use_kernel and softcap is None and causal
+
+    def kern(q_l, k_l, v_l, off):
+        if kernel_ok:
+            o = dispatch.flash_attention(
+                q_l.transpose(1, 2), k_l.transpose(1, 2),
+                v_l.transpose(1, 2), off, causal=True, window=window)
+            return o.transpose(1, 2)
+        return blocked_attention(q_l, k_l, v_l, causal=causal, window=window,
+                                 softcap=softcap, q_offset=off)
+
+    if kind == "batch":
+        axes = (*baxes, "model")
+        n = q.shape[0] // mesh.size(axes)
+        lo = mesh.index(axes) * n
+        o = kern(q[lo:lo + n], k[lo:lo + n], v[lo:lo + n], 0)
+        return mesh.gather(o, batch_axes=axes)
+    n = q.shape[0] // mesh.size(baxes)
+    lo = mesh.index(baxes) * n
+    s = q.shape[1] // mesh.shape["model"]
+    off = mesh.coords["model"] * s
+    o = kern(q[lo:lo + n, off:off + s], k[lo:lo + n], v[lo:lo + n], off)
+    return mesh.gather(o, batch_axes=baxes, seq_axes=("model",))
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, lead=()) -> dict:
@@ -66,16 +116,18 @@ def _project_qkv(params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def attention_fwd(params, cfg: ArchConfig, x: torch.Tensor, *,
-                  positions=None):
+                  positions=None, use_kernel: bool = False):
     """Causal self-attention over the full sequence (prefill).
 
-    x: (B, S, d_model). Returns (out, (k, v)) so prefill can keep the
-    cache; k, v: (B, S, KH, hd)."""
+    x: (B, S, d_model). ``use_kernel``: split attention runs its shards
+    through the flash-attention kernel (``attention_core``). Returns (out,
+    (k, v)) so prefill can keep the cache; k, v: (B, S, KH, hd)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = causal_attention(q, k, v)
+    out = attention_core(q, k, v, causal=True, window=None,
+                         softcap=cfg.logit_softcap, use_kernel=use_kernel)
     out = out.reshape(B, S, -1) @ params["wo"]
     return out, (k, v)
 

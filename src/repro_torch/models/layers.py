@@ -117,34 +117,80 @@ def unembed(params, h: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# causal GQA attention (prefill)
+# memory-bounded attention (prefill)
 # ----------------------------------------------------------------------------
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Causal grouped-query attention with the semantics of the JAX
-    package's ``blocked_attention``: scores accumulate in fp32 from the
-    inputs' values, p is cast to v's dtype before the PV product, which
-    accumulates in fp32, and the result is cast to q's dtype.
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window=None, q_block: int = 256,
+                      kv_block: int = 512, softcap=None,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Memory-bounded grouped-query attention, the JAX package's
+    ``blocked_attention``: kv-head groups, then query blocks, then kv
+    blocks with an online softmax, so every intermediate is one tile.
 
-    q: (B, S, H, D); k, v: (B, S, KH, D) with H % KH == 0. Head h reads kv
-    head h // (H / KH). Computed in one block over the sequence (the JAX
-    package's online softmax over kv blocks is the same function; for
-    S <= 512 it is one block there too)."""
-    B, S, H, D = q.shape
-    KH = k.shape[2]
+    q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0; head h reads
+    kv head h // (H / KH). ``q_offset`` is the absolute position of q row 0
+    (a sequence-parallel shard). The query tile widens from ``q_block`` up
+    to 1024 rows while the (B, G, qb, kb) fp32 score tile stays within
+    4 MB, as in the reference. Scores accumulate in fp32 from the inputs'
+    values, p is cast to v's dtype before the PV product, which
+    accumulates in fp32, and the result is cast to q's dtype. A kv block
+    that no query of the tile may see (causal or window) is skipped: it
+    would leave (m, l, acc) exactly as they are. A fully masked row is 0.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
-    qf = q.float().reshape(B, S, KH, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
-    s = s * (1.0 / math.sqrt(D))
-    pos = torch.arange(S, device=q.device)
-    s = s.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
-    # causal: every row keeps its diagonal, so its max is finite
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
-    out = acc / torch.clamp(l, min=1e-30)[..., None]    # (B, KH, G, S, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    scale = 1.0 / math.sqrt(D)
+    kb = min(kv_block, Sk)
+    budget = 4 * 1024 * 1024
+    qb_fit = max(budget // (B * G * kb * 4), 1)
+    qb_fit = 1 << (qb_fit.bit_length() - 1)             # floor pow2
+    qb = min(max(q_block, qb_fit), 1024, Sq)
+    dev = q.device
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    for kh in range(KH):
+        k_h, v_h = k[:, :, kh], v[:, :, kh]              # (B, Sk, D)
+        for q0 in range(0, Sq, qb):
+            q1 = min(q0 + qb, Sq)
+            qblk = q[:, q0:q1, kh * G:(kh + 1) * G].float()   # (B, n, G, D)
+            qp = q_offset + torch.arange(q0, q1, device=dev)
+            lo, hi = q_offset + q0, q_offset + q1 - 1     # absolute rows
+            m = torch.full((B, G, q1 - q0), float("-inf"), device=dev)
+            l = torch.zeros((B, G, q1 - q0), device=dev)
+            acc = torch.zeros((B, G, q1 - q0, D), device=dev)
+            for k0 in range(0, Sk, kb):
+                k1 = min(k0 + kb, Sk)
+                if causal and k0 > hi:
+                    break
+                if window is not None and lo - (k1 - 1) >= window:
+                    continue
+                s = torch.einsum("bqgd,bkd->bgqk", qblk,
+                                 k_h[:, k0:k1].float()) * scale
+                if softcap is not None:
+                    s = softcap * torch.tanh(s / softcap)
+                kp = torch.arange(k0, k1, device=dev)
+                mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                                  device=dev)
+                if causal:
+                    mask &= qp[:, None] >= kp[None, :]
+                if window is not None:
+                    mask &= qp[:, None] - kp[None, :] < window
+                s = s.masked_fill(~mask, float("-inf"))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+                p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
+                corr = torch.where(torch.isneginf(m), 0.0,
+                                   torch.exp(m - m_safe))
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bgqk,bkd->bgqd", p.to(v.dtype).float(),
+                    v_h[:, k0:k1].float())
+                m = m_new
+            o = acc / torch.clamp(l, min=1e-30)[..., None]    # (B, G, n, D)
+            out[:, q0:q1, kh * G:(kh + 1) * G] = o.permute(0, 2, 1, 3).to(
+                q.dtype)
+    return out
 
 
 # ----------------------------------------------------------------------------

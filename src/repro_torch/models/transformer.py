@@ -93,7 +93,10 @@ def _apply_block(params, cfg: ArchConfig, h: torch.Tensor, *,
         new_cache = dict(cache)
         new_cache.update(kv)
     else:
-        y, (k, v) = attn.attention_fwd(params["attn"], cfg, x)
+        # the flash kernel on the card (reached under a mesh only); the
+        # plain blocked path on the CPU, as the JAX package on its host
+        y, (k, v) = attn.attention_fwd(params["attn"], cfg, x,
+                                       use_kernel=x.is_cuda)
         new_cache = {"k": k, "v": v}
     h = h + y
     x = rmsnorm(params["norm2"], h, cfg.norm_eps)

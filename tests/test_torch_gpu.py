@@ -193,3 +193,90 @@ def test_paged_decode_server_on_card(cuda):
     for out in (dense, host):
         np.testing.assert_array_equal(out["tokens"], paged["tokens"])
         np.testing.assert_array_equal(out["logits"], paged["logits"])
+
+
+# the flash kernel against its plain version: (rtol, atol) by dtype
+FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,q_offset,window,dtype", [
+    (4, 12, 2, 256, 256, 128, 0, None, torch.bfloat16),   # batch shard
+    (1, 12, 2, 512, 1024, 128, 512, None, torch.bfloat16),  # seq shard
+    (2, 4, 2, 200, 200, 64, 0, None, torch.float32),      # ragged tiles
+    (1, 8, 1, 130, 130, 32, 0, 40, torch.float32),        # window
+    (2, 6, 3, 70, 140, 16, 70, 33, torch.bfloat16),
+    (1, 4, 2, 64, 128, 32, 256, 32, torch.float32),       # all rows masked
+    (1, 4, 2, 64, 128, 32, 100, 32, torch.float32)])      # rows 59.. masked
+def test_flash_attention_kernel(cuda, B, H, KH, Sq, Sk, D, q_offset, window,
+                                dtype):
+    """Against the plain version; q, k, v as strided (B, S, heads, D)
+    views, as the model hands them over. Both compute in fp32 and differ in
+    the order of the sums: fp32 within 2e-5; bf16 adds one rounding of the
+    output, so each element within 2^-7 |want| (one bf16 ulp) + 1e-4."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + q_offset)
+    q, k, v = (torch.randn(B, s, n, D, generator=g, device=cuda).to(dtype)
+               .transpose(1, 2) for s, n in ((Sq, H), (Sk, KH), (Sk, KH)))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, q_offset, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_ref(q, k, v, q_offset, causal=True, window=window)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    masked = q_offset + torch.arange(Sq, device=cuda) - (Sk - 1) >= (
+        window or Sk + Sq + q_offset)
+    assert not got[:, :, masked].any()
+
+
+def _mesh_rank(rank, world, out_dir):
+    """A (data 1, model 2) mesh of two ranks on cuda:0: attention_core by
+    batch and by query rows through the kernel, saved for the test."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention, hints
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = M.make_mesh((1, world), ("data", "model"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (B, S) in (("batch", (4, 256)), ("seq", (1, 512))):
+        q = torch.randn(B, S, 12, 128, generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(B, S, 2, 128, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        with hints.use_mesh(mesh):
+            kind = hints.attn_split(S, B)[0]
+            before = flash_attention_cuda.launches
+            o = attention.attention_core(q, k, v, causal=True, window=None,
+                                         softcap=None, use_kernel=True)
+        torch.cuda.synchronize()
+        out[name] = (kind, flash_attention_cuda.launches - before,
+                     o.cpu(), q.cpu(), k.cpu(), v.cpu())
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def test_two_rank_gloo_mesh_on_one_card(cuda, tmp_path):
+    """Two gloo ranks share the card: each runs its shard through the
+    kernel once and both gather the same whole output, which equals the
+    kernel's plain version on the whole input."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as M
+    _build.library()                    # built once, before the ranks
+    M.run_ranks(_mesh_rank, 2, backend="gloo", args=(str(tmp_path),),
+                timeout_s=300, init_timeout_s=120, rdzv_dir=str(tmp_path))
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for name in ("batch", "seq"):
+        kind, launches, o, q, k, v = ranks[0][name]
+        assert kind == name
+        want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)).transpose(1, 2)
+        rtol, atol = FLASH_TOL[torch.bfloat16]
+        torch.testing.assert_close(o.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        for r in ranks:
+            assert r[name][0] == name and r[name][1] == 1
+            assert torch.equal(r[name][2], o)

@@ -1,8 +1,9 @@
 """The port's model stages against the JAX package, on the CPU.
 
-Configs are compared field for field. Layers, ``stage1_prefill``,
-``stage2_prefill`` and ``serve_batch`` run on ``tiny_cfg`` and on
-``smoke_config(qwen2-1.5b)`` with the JAX package's params carried across
+Configs are compared field for field. Layers, ``prefill`` + one
+``decode_step``, ``stage1_prefill``, ``stage2_prefill`` and ``serve_batch``
+run on ``tiny_cfg`` and on the smoke configs of qwen2-1.5b, qwen3-4b,
+qwen1.5-4b and qwen2-7b with the JAX package's params carried across
 by ``repro_torch.bridge``; inputs are made with numpy from a seed.
 
 Tolerances: fp32 paths rtol 1e-5 / atol 2e-5 (the same arithmetic, summed
@@ -58,11 +59,17 @@ def _np(t):
         np.asarray(jnp.asarray(t).astype(jnp.float32))
 
 
-@pytest.fixture(scope="module", params=["tiny", "qwen2-smoke"])
+SMOKE_ARCHS = {"qwen2-smoke": "qwen2-1.5b",
+               "qwen3-4b-smoke": "qwen3-4b",       # qk_norm, no qkv bias
+               "qwen1.5-4b-smoke": "qwen1.5-4b",   # MHA, untied head
+               "qwen2-7b-smoke": "qwen2-7b"}       # untied head
+
+
+@pytest.fixture(scope="module", params=["tiny", *SMOKE_ARCHS])
 def model(request, tiny_cfg):
     """(jax cfg, port cfg, jax spec, jax params, port params)."""
     jcfg = tiny_cfg if request.param == "tiny" else jx_smoke(
-        JX_ARCHS["qwen2-1.5b"])
+        JX_ARCHS[SMOKE_ARCHS[request.param]])
     jspec = jx_ee.default_spec(jcfg)
     jparams = jx_ee.init_ee_params(jax.random.PRNGKey(0), jcfg, jspec)
     return jcfg, port_cfg(jcfg), jspec, jparams, bridged(jparams)
@@ -164,7 +171,7 @@ def test_layers_match_jax(dtype):
     kj, kt = pair((2, 6, 2, 16))
     vj, vt = pair((2, 6, 2, 16))
     np.testing.assert_allclose(
-        _np(layers.causal_attention(qt, kt, vt)),
+        _np(layers.blocked_attention(qt, kt, vt)),
         _np(jx_layers.blocked_attention(qj, kj, vj)), **tol)
 
 
@@ -195,6 +202,31 @@ def test_stages_match_jax(model):
     _, p2 = ee.split_params(cfg, spec, params)
     fin2, _ = ee.stage2_prefill(p2, cfg, spec, h, presliced_params=True)
     assert torch.equal(fin2, fin)
+
+
+def test_prefill_and_decode_step_match_jax(model):
+    """The backbone alone: prefill of 6 tokens into caches of 8, then one
+    decode step, logits and the new cache rows against the JAX package."""
+    from repro.models import transformer as JT
+    jcfg, cfg, _, jparams, params = model
+    toks = _tokens(cfg, 3, 6, 4)
+    jlog, jc, _ = JT.prefill(jparams["backbone"], jcfg, jnp.asarray(toks),
+                             max_len=8)
+    log, c = T.prefill(params["backbone"], cfg, torch.from_numpy(toks),
+                       max_len=8)
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=RTOL,
+                               atol=ATOL)
+    tok = np.asarray(jlog).argmax(-1).astype(np.int32)[:, None]
+    jlog, jc = JT.decode_step(jparams["backbone"], jcfg, jnp.asarray(tok),
+                              jc, jnp.int32(6))
+    log, c = T.decode_step(params["backbone"], cfg, torch.from_numpy(tok), c,
+                           6)
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=RTOL,
+                               atol=ATOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(c["blocks"][0][key].numpy(),
+                                   np.asarray(jc["blocks"][0][key]),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def _off_margin_threshold(conf: np.ndarray, rate: float) -> float:
