@@ -28,8 +28,10 @@ CUDA toolkit. Phases, each printing its result on its own line:
      holding the same full-width qwen2-1.5b: B 32 x S 512 (attention split
      by batch) and B 1 x S 4096 (split by query rows, rank 1 at offset
      2048); the flash-attention kernel must have launched once per
-     attention layer of both stages on each rank; in bf16 both ranks must
-     equal the single device with the kernel run unsplit bit for bit, and
+     attention layer of both stages on each rank (the bf16 tensor-core
+     kernel in the bf16 cells, the fp32 one in the fp32 cells); in bf16
+     both ranks must equal the single device with the kernel run unsplit
+     bit for bit, and
      the same cells in fp32 the single-device ``serve_batch`` (plain
      blocked attention) within 1e-3;
   5. decode  -- the same model and weights, threshold calibrated on the
@@ -482,16 +484,25 @@ def paged_kernel_check(torch, dev, g) -> dict:
 
 
 def flash_kernel_check(torch, dev, g) -> dict:
-    """The flash-attention kernel against its plain version at the mesh
+    """The flash-attention kernels against their plain version at the mesh
     prefill cell's shard shapes in bf16 (qwen2-1.5b: 12 query heads over 2
     kv heads of 128), a windowed case, a ragged Sq of 200, fp32 and the
-    narrower head dims, and fully masked rows; then the two shard shapes
-    timed beside the plain version, SDPA with the same mask, and the
+    narrower head dims in both dtypes, and fully masked rows; the bf16
+    kernel's registers, shared memory and occupancy; then the two shard
+    shapes timed beside the plain version, SDPA with the same mask, and the
     bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import kernel_attrs
     H, KH, D = 12, 2, 128
+    for d in (16, 32, 64, 128):
+        a = kernel_attrs(d)
+        print(f"  flash_fwd_mma D {d}: {a['regs']} registers a thread, "
+              f"{a['dyn_smem']} B dynamic shared memory a block (static "
+              f"{a['static_smem']} B), {a['spill_bytes']} B local a thread, "
+              f"{a['threads']} threads, {a['blocks_per_sm']} resident "
+              f"blocks an SM")
     B_b, S_b = MESH_CELLS["batch"]
     S_s = MESH_CELLS["seq"][1]
 
@@ -509,6 +520,8 @@ def flash_kernel_check(torch, dev, g) -> dict:
               ("ragged", 2, 200, 200, 0, None, H, KH, D, torch.bfloat16),
               ("fp32", 2, 256, 512, 256, None, 8, 2, 64, torch.float32),
               ("d32", 1, 130, 130, 0, 40, 4, 4, 32, torch.float32),
+              ("d64bf16", 2, 300, 300, 0, 100, 12, 2, 64, torch.bfloat16),
+              ("d32bf16", 1, 130, 390, 260, None, 8, 2, 32, torch.bfloat16),
               ("d16", 2, 70, 140, 70, None, 8, 1, 16, torch.bfloat16),
               ("masked", 1, 64, 128, 256, 32, 4, 2, 32, torch.float32)]
     err, timed = 0.0, {}
@@ -661,7 +674,8 @@ def mesh_rank(rank: int, world: int, out_dir: str, cells: dict,
         cell.step_fn(p, tok)                        # warm-up, off the count
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention_cuda.launches = 0
+        for key in flash_attention_cuda.launches:
+            flash_attention_cuda.launches[key] = 0
         t0 = time.perf_counter()
         out = cell.step_fn(p, tok)
         torch.cuda.synchronize()
@@ -669,7 +683,7 @@ def mesh_rank(rank: int, world: int, out_dir: str, cells: dict,
         with hints.use_mesh(mesh):
             kinds = [hints.attn_split(S, B), hints.attn_split(
                 S, cell.meta["capacity"])]
-        res[dt, name] = {"launches": flash_attention_cuda.launches,
+        res[dt, name] = {"by_kernel": dict(flash_attention_cuda.launches),
                          "ms": ms, "peak": torch.cuda.max_memory_allocated(),
                          "kinds": [None if k is None else k[0]
                                    for k in kinds],
@@ -705,6 +719,7 @@ def rank_profile(torch, run) -> dict:
             t = getattr(evt, "self_device_time_total",
                         getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
             device += t
+            # flash_fwd_mma (bf16) and flash_fwd (fp32)
             flash += t if "flash_fwd" in evt.key else 0.0
         elif "gather" in evt.key.lower():
             gathers[evt.key] = (evt.count, evt.cpu_time_total / 1e3)
@@ -715,9 +730,11 @@ def rank_profile(torch, run) -> dict:
 def unsplit_kernel_core(q, k, v, *, causal, window, softcap,
                         use_kernel=False):
     """attention_core as one rank that holds every shard: the kernel on
-    the whole (B, S) input at offset 0. The kernel computes every (row,
-    head) from its own q row and the keys its tile of 64 rows visits, so
-    the mesh's shards, gathered, must equal this bit for bit."""
+    the whole (B, S) input at offset 0. The bf16 kernel computes every
+    (position, head) row from its own q row over the same 64-key tiles in
+    any block of 64 rows (a tile fully masked for a row leaves it exactly
+    as it was), so the mesh's shards, gathered, must equal this bit for
+    bit."""
     from repro_torch.kernels import dispatch
     o = dispatch.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), 0, causal=causal,
@@ -791,9 +808,11 @@ def mesh_phase(torch, dev, kernels: dict, params, cfg) -> None:
         for r, res in enumerate(ranks):
             got = res[dt, name]
             what = f"mesh {dt} {name}: rank {r}"
-            check(got["launches"] == n_attn,
-                  f"{what} launched the flash kernel {got['launches']} "
-                  f"times, not once per attention layer ({n_attn})")
+            sym = "flash_fwd_mma" if dt == "bfloat16" else "flash_fwd"
+            check(got["by_kernel"] == {k: n_attn if k == sym else 0
+                                       for k in got["by_kernel"]},
+                  f"{what} launched {got['by_kernel']}, not {sym} once per "
+                  f"attention layer ({n_attn})")
             check(got["kinds"] == [name, name],
                   f"{what} split as {got['kinds']}")
             check(np.isfinite(got["logits"]).all(), f"{what}: non-finite")
@@ -820,7 +839,7 @@ def mesh_phase(torch, dev, kernels: dict, params, cfg) -> None:
                     check(np.array_equal(got[key], w["unsplit"][key]),
                           f"{what} {key} differs from the single device "
                           f"with the kernel unsplit")
-            total += got["launches"]
+            total += sum(got["by_kernel"].values())
         B, S = MESH_CELLS[name]
         def gap(a, b):
             return float(np.abs(a["logits"] - b["logits"]).max())
@@ -844,13 +863,16 @@ def mesh_phase(torch, dev, kernels: dict, params, cfg) -> None:
               f"{int(w['n_hard'])}; single device (blocked attention) "
               f"{w['ms']:.1f} ms; "
               + "; ".join(f"rank {r}: split {res[dt, name]['kinds'][0]}, "
-                          f"flash launches {res[dt, name]['launches']}, "
+                          f"flash launches {res[dt, name]['by_kernel']}, "
                           f"{res[dt, name]['ms']:.1f} ms host clock, peak "
                           f"{res[dt, name]['peak'] / 2**30:.2f} GiB, max |d "
                           f"logits| vs blocked {res[dt, name]['max_d']:.3g}"
                           for r, res in enumerate(ranks)) + extra)
     kernels["flash_attention"]["launches"] = total
     kernels["flash_attention"]["launches_by_path"] = {"mesh_prefill": total}
+    kernels["flash_attention"]["launches_by_kernel"] = {
+        sym: sum(res[key]["by_kernel"][sym] for res in ranks for key in want)
+        for sym in ("flash_fwd_mma", "flash_fwd")}
     print(f"PHASE mesh: ok; two gloo ranks on one card, mesh (data 1, model "
           f"2), {spawn_s:.1f} s with start-up; flash launches {total} "
           f"({n_attn} a rank a cell a dtype); rows inside the {MARGIN:g} "
@@ -1128,7 +1150,7 @@ KERNEL_NAMES = {"exit_decision": ("exit_decision_partial",
                                    "gather_rows"),
                 "scatter_merge": ("scatter_merge_rows",),
                 "paged_gather_append": ("paged_append", "paged_gather"),
-                "flash_attention": ("flash_fwd",)}
+                "flash_attention": ("flash_fwd",)}   # and flash_fwd_mma
 
 
 def kernel_shares(torch, window, kernels, wrappers) -> str:

@@ -39,6 +39,7 @@ SIGNATURES = {
                                   _LL, _LL, _P, _P, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
     + (_LL,) * 12 + (_I, _I, _I, _F, _P),
+    "repro_flash_attention_attrs": (_I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,15 +1,19 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``. Bound on the card: operations, the QK^T and PV
 products over the pairs that the causal and window masks keep (4 D flops
-a pair); see the source for the design. The kernel reads q, k and v through
-their strides, so the (B, S, H, D) activations of the model go in as
-(B, H, S, D) views without a copy, and it writes an output laid out
+a pair); see the source for the design. The dtype picks the kernel, and
+nothing else does: bf16 runs ``flash_fwd_mma`` (tensor cores through
+``mma.sync``, K/V through a ``cp.async`` ring, PV on p split into two bf16
+halves), fp32 runs ``flash_fwd`` (fp32 FMAs). The kernels read q, k and v
+through their strides, so the (B, S, H, D) activations of the model go in
+as (B, H, S, D) views without a copy, and they write an output laid out
 (B, Sq, H, D), returned as the (B, H, Sq, D) view the reference returns.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -17,7 +21,22 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_mma"}
 HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _chunk_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its base and the strides of its (batch, head,
+    position) dims of more than one element are multiples of 16 bytes, as
+    the bf16 kernel's 16-byte ``cp.async`` copies need; else a contiguous
+    copy. The model's activations and their mesh shards pass as they
+    are."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st % step == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+            if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -25,8 +44,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KH, Sk, D); float32 or bfloat16, one
     dtype, unit stride along D, on one CUDA device; D in {16, 32, 64, 128}.
-    Returns (B, H, Sq, D) in q.dtype. Launches the kernel; raises on
-    anything it does not take."""
+    Returns (B, H, Sq, D) in q.dtype. Launches the kernel of q's dtype;
+    raises on anything it does not take."""
     _build.require_cuda(q, "flash_attention")
     dev = q.device
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -62,6 +81,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = out.transpose(1, 2)                              # (B, H, Sq, D)
     if B * Sq == 0:
         return o
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.repro_flash_attention(
@@ -72,8 +93,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0 if window is None else int(window), D ** -0.5,
             _build.stream())
     _build.check(err, "flash_attention")
-    flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches[KERNELS[q.dtype]] += 1
     return o
 
 
-flash_attention_cuda.launches = 0
+def kernel_attrs(D: int) -> dict:
+    """The bf16 kernel's resources at head dim ``D`` on the current card,
+    from ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.library().repro_flash_attention_attrs(D, out),
+                 "flash_attention attrs")
+    return dict(zip(("regs", "dyn_smem", "static_smem", "spill_bytes",
+                     "blocks_per_sm", "threads"), out))
+
+
+# launches of each kernel, by its symbol
+flash_attention_cuda.launches = dict.fromkeys(KERNELS.values(), 0)

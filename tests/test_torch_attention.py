@@ -224,10 +224,36 @@ def test_flash_dispatch_picks_by_device():
     assert torch.equal(dispatch.flash_attention(qt, kt, vt, 0, causal=True,
                                                 window=None),
                        flash_attention_ref(qt, kt, vt))
-    before = flash_attention_cuda.launches
+    before = dict(flash_attention_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(qt, kt, vt)
     assert flash_attention_cuda.launches == before
+
+
+def test_flash_kernel_chunk_alignment():
+    """The bf16 kernel copies 16-byte chunks. The wrapper hands it the
+    model's (B, S, H, D) activations and their sequence shards as they
+    are, and a contiguous copy, equal in value, of a view whose base or
+    whose stride along a dim of more than one element is not a multiple of
+    16 bytes."""
+    from repro_torch.kernels.flash_attention.kernel import _chunk_aligned
+    bf = torch.bfloat16
+    x = torch.zeros(2, 100, 12, 128, dtype=bf).transpose(1, 2)
+    shard = x[:, :, 50:]
+    one = torch.zeros(64, dtype=bf).as_strided((1, 1, 4, 16), (7, 5, 16, 1))
+    for t in (x, shard, one):
+        assert _chunk_aligned(t) is t
+    rng = np.random.default_rng(3)
+    big = torch.from_numpy(rng.standard_normal((2, 100, 6, 72),
+                                               dtype=np.float32)).to(bf)
+    kv = torch.from_numpy(rng.standard_normal((2, 100, 4, 68),
+                                              dtype=np.float32)).to(bf)
+    for t in (big[..., 1:65].transpose(1, 2),          # base 2 bytes off
+              kv[:, :, :2, :64].transpose(1, 2),       # head stride 136 B
+              kv[:, :, 2:, :64].transpose(1, 2)):      # and base 136 B off
+        a = _chunk_aligned(t)
+        assert a is not t and torch.equal(a, t)
+        assert a.data_ptr() % 16 == 0 and a.is_contiguous()
 
 
 # ---------------------------------------------------------------------------

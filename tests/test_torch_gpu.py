@@ -206,22 +206,32 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
     (1, 8, 1, 130, 130, 32, 0, 40, torch.float32),        # window
     (2, 6, 3, 70, 140, 16, 70, 33, torch.bfloat16),
     (1, 4, 2, 64, 128, 32, 256, 32, torch.float32),       # all rows masked
-    (1, 4, 2, 64, 128, 32, 100, 32, torch.float32)])      # rows 59.. masked
+    (1, 4, 2, 64, 128, 32, 100, 32, torch.float32),       # rows 59.. masked
+    (2, 8, 2, 96, 224, 32, 128, None, torch.bfloat16),    # bf16 D 32
+    (2, 12, 2, 256, 256, 64, 0, None, torch.bfloat16),    # bf16 D 64
+    (1, 12, 2, 201, 201, 128, 0, None, torch.bfloat16),   # 1206 rows: ragged
+    (1, 12, 2, 300, 300, 64, 0, 100, torch.bfloat16),     # window mid-tile
+    (1, 6, 1, 128, 512, 128, 384, 72, torch.bfloat16),    # and at an offset
+    (1, 4, 2, 64, 128, 32, 100, 32, torch.bfloat16)])     # rows 59.. masked
 def test_flash_attention_kernel(cuda, B, H, KH, Sq, Sk, D, q_offset, window,
                                 dtype):
     """Against the plain version; q, k, v as strided (B, S, heads, D)
-    views, as the model hands them over. Both compute in fp32 and differ in
-    the order of the sums: fp32 within 2e-5; bf16 adds one rounding of the
-    output, so each element within 2^-7 |want| (one bf16 ulp) + 1e-4."""
+    views, as the model hands them over. Both sum in fp32 and differ in
+    the order of the sums (in bf16 the kernel's products are exact bf16
+    products on the tensor cores, p split into two bf16 halves): fp32
+    within 2e-5; bf16 adds one rounding of the output, so each element
+    within 2^-7 |want| (one bf16 ulp) + 1e-4. fp32 launches the FMA
+    kernel and bf16 the tensor-core one, as the per-kernel counts show."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
     g = torch.Generator(device=cuda).manual_seed(Sq + Sk + q_offset)
     q, k, v = (torch.randn(B, s, n, D, generator=g, device=cuda).to(dtype)
                .transpose(1, 2) for s, n in ((Sq, H), (Sk, KH), (Sk, KH)))
-    before = flash_attention_cuda.launches
+    sym = "flash_fwd_mma" if dtype == torch.bfloat16 else "flash_fwd"
+    before = dict(flash_attention_cuda.launches)
     got = flash_attention_cuda(q, k, v, q_offset, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.launches == {**before, sym: before[sym] + 1}
     want = flash_attention_ref(q, k, v, q_offset, causal=True, window=window)
     rtol, atol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -229,6 +239,41 @@ def test_flash_attention_kernel(cuda, B, H, KH, Sq, Sk, D, q_offset, window,
     masked = q_offset + torch.arange(Sq, device=cuda) - (Sk - 1) >= (
         window or Sk + Sq + q_offset)
     assert not got[:, :, masked].any()
+
+
+@pytest.mark.parametrize("S,window", [(512, None), (200, None), (200, 50)])
+def test_flash_attention_seq_split_bitwise(cuda, S, window):
+    """bf16: the query rows split in two launches, at offsets 0 and S/2
+    against all the keys (the mesh's sequence split), equal the same rows
+    of one unsplit launch bit for bit, also where S/2 x 6 rows is not a
+    multiple of the kernel's 64-row blocks (S 200)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(2, S, n, 128, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for n in (12, 2, 2))
+    whole = flash_attention_cuda(q, k, v, 0, window=window)
+    h = S // 2
+    lo = flash_attention_cuda(q[:, :, :h], k, v, 0, window=window)
+    hi = flash_attention_cuda(q[:, :, h:], k, v, h, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(lo, whole[:, :, :h])
+    assert torch.equal(hi, whole[:, :, h:])
+
+
+def test_flash_attention_kernel_unaligned_views(cuda):
+    """bf16 views whose base or strides are not 16-byte multiples (the
+    kernel copies 16-byte chunks) give what contiguous inputs give."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(2)
+    big, kv = (torch.randn(2, 100, n, w, generator=g, device=cuda).to(
+        torch.bfloat16) for n, w in ((6, 72), (4, 68)))
+    q = big[..., 1:65].transpose(1, 2)            # base 2 bytes off
+    k = kv[:, :, :2, :64].transpose(1, 2)         # head stride 136 bytes
+    v = kv[:, :, 2:, :64].transpose(1, 2)         # and base 136 bytes off
+    got = flash_attention_cuda(q, k, v, 0)
+    want = flash_attention_cuda(*(t.contiguous() for t in (q, k, v)), 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _mesh_rank(rank, world, out_dir):
@@ -249,11 +294,12 @@ def _mesh_rank(rank, world, out_dir):
             torch.bfloat16) for _ in range(2))
         with hints.use_mesh(mesh):
             kind = hints.attn_split(S, B)[0]
-            before = flash_attention_cuda.launches
+            before = sum(flash_attention_cuda.launches.values())
             o = attention.attention_core(q, k, v, causal=True, window=None,
                                          softcap=None, use_kernel=True)
         torch.cuda.synchronize()
-        out[name] = (kind, flash_attention_cuda.launches - before,
+        out[name] = (kind,
+                     sum(flash_attention_cuda.launches.values()) - before,
                      o.cpu(), q.cpu(), k.cpu(), v.cpu())
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
